@@ -1,0 +1,170 @@
+"""Training engine: drives communication rounds with device scheduling,
+the wireless channel simulator, wall-clock accounting, and periodic
+evaluation — the paper's experimental harness (Figs 3-6).
+
+Port of `repro.core.engine.Trainer` for the slice that runs the paper's
+protocol on one GPU: algorithm "proposed", layout "stacked" (the K
+devices stacked on one card) and the host driver (one round per call,
+numpy scheduling and channel state, as in the JAX package's host
+driver, whose masks, weights and wallclock this one matches bit for
+bit). Every other choice of the JAX Trainer — FedGAN, the centralized
+baseline, the fused driver, the mesh layout, tensor parallelism, fault
+programs and robust reducers, microbatching — raises a ValueError.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ProtocolConfig
+from repro_torch.core import protocol
+from repro_torch.core.channel import (ChannelConfig, ChannelSimulator,
+                                      round_wallclock)
+from repro_torch.core.scheduling import SchedulerState, schedule_round
+from repro_torch.device import resolve_device
+
+
+@dataclasses.dataclass
+class RoundRecord:
+    round: int
+    wallclock_s: float
+    cumulative_s: float
+    metrics: dict
+    fid: Optional[float] = None
+    mask: Optional[np.ndarray] = None      # (K,) bool — scheduled devices
+    weights: Optional[np.ndarray] = None   # (K,) float32 — Algorithm 2's
+
+
+def _check_scope(algorithm, driver, layout, tp, faults, reducer, pcfg):
+    """Refuse what this port does not run yet, instead of degrading."""
+    if algorithm != "proposed":
+        raise ValueError(f"algorithm={algorithm!r} is not ported; the "
+                         f"port runs algorithm='proposed'")
+    if driver not in ("auto", "host"):
+        raise ValueError(f"driver={driver!r} is not ported; the port "
+                         f"runs the host driver ('host' or 'auto')")
+    if layout != "stacked":
+        raise ValueError(f"layout={layout!r} is not ported; the port "
+                         f"runs layout='stacked'")
+    if tp != 1:
+        raise ValueError(f"tp={tp} is not ported; the port runs tp=1")
+    if faults is not None or reducer not in (None, "mean"):
+        raise ValueError("faults= and reducer= are not ported; the port "
+                         "runs the plain weighted average")
+    if pcfg.micro_batch_d is not None or pcfg.micro_batch_g is not None:
+        raise ValueError("micro_batch_d/micro_batch_g are not ported; "
+                         "leave them None")
+
+
+class Trainer:
+    """Runs the proposed protocol over a simulated device fleet on one
+    device (CUDA unless `device` names another).
+
+    init_fn(generator) -> {"gen", "disc"} builds the initial parameters.
+    data_stacked: (K, n_k, ...) array of device shards, or a flat (N, ...)
+    array with `partition=` ("iid" | "dirichlet").
+    seed: seeds the initial parameters and every round's draws.
+    sampler: optional t -> `protocol.RoundDraws` replacing the seeded
+    `protocol.DrawSampler` (tests feed the JAX package's draws).
+    fid_fn(gen_params, generator) is called on evaluation rounds with a
+    generator seeded from (seed, round).
+    """
+
+    def __init__(self, spec: protocol.GanModelSpec, pcfg: ProtocolConfig,
+                 init_fn: Callable, data_stacked, seed: int = 0, *,
+                 algorithm: str = "proposed",
+                 channel_cfg: Optional[ChannelConfig] = None,
+                 disc_step_flops: float = 1e9, gen_step_flops: float = 1e9,
+                 driver: str = "auto", layout: str = "stacked", tp: int = 1,
+                 faults=None, reducer=None,
+                 partition: Optional[str] = None, labels=None,
+                 partition_alpha: float = 0.5, partition_seed: int = 0,
+                 sampler: Optional[Callable] = None, device=None):
+        _check_scope(algorithm, driver, layout, tp, faults, reducer, pcfg)
+        self.device = resolve_device(device)
+        if partition is not None:
+            from repro_torch.data.partition import partition as partition_fn
+            data_stacked = partition_fn(
+                np.asarray(data_stacked), pcfg.n_devices, labels=labels,
+                kind=partition, alpha=partition_alpha, seed=partition_seed)
+        self.data = torch.as_tensor(data_stacked, dtype=torch.float32,
+                                    device=self.device)
+        if self.data.shape[0] != pcfg.n_devices:
+            raise ValueError(f"data has {self.data.shape[0]} shards for "
+                             f"pcfg.n_devices={pcfg.n_devices}")
+
+        self.spec, self.pcfg, self.seed = spec, pcfg, seed
+        self.n_devices = pcfg.n_devices
+        channel_cfg = channel_cfg or ChannelConfig(n_devices=pcfg.n_devices)
+        self.channel = ChannelSimulator(channel_cfg)
+        self.sched = SchedulerState(
+            policy=pcfg.scheduler, n_devices=pcfg.n_devices,
+            ratio=pcfg.scheduling_ratio)
+        self.rng = np.random.default_rng(0)
+        self.disc_step_flops = disc_step_flops
+        self.gen_step_flops = gen_step_flops
+
+        self.state = protocol.make_train_state(init_fn, pcfg, self.n_devices,
+                                               seed=seed, device=self.device)
+        self._disc_nparams = protocol.count_params(self.state["disc"])
+        self._gen_nparams = protocol.count_params(self.state["gen"])
+        self._uplink_bits = protocol.uplink_payload_bits(self.state, pcfg)
+        self.sampler = sampler or protocol.DrawSampler(
+            spec, pcfg, seed=seed, n_local=self.data.shape[1],
+            n_params=self._disc_nparams, device=self.device)
+        self.history: list[RoundRecord] = []
+        self._clock = 0.0
+        self._round_index = 0
+
+    def run(self, n_rounds: int, *, eval_every: int = 0,
+            fid_fn: Optional[Callable] = None, verbose: bool = False):
+        """Run `n_rounds` rounds, one at a time (the host driver)."""
+        pcfg = self.pcfg
+        for _ in range(n_rounds):
+            t = self._round_index
+
+            # Step 1: schedule + channel state (numpy, host).
+            rates = self.channel.uplink_rates(self.sched.n_scheduled)
+            mask = schedule_round(self.sched, rates, self.rng)
+            timing = self.channel.round_timing(
+                mask=mask, disc_params=self._disc_nparams,
+                gen_params=self._gen_nparams,
+                disc_step_flops=self.disc_step_flops,
+                gen_step_flops=self.gen_step_flops,
+                n_d=pcfg.n_d, n_g=pcfg.n_g, uplink_bits=self._uplink_bits)
+            active = mask & ~timing.stragglers
+            weights = np.where(active, float(pcfg.sample_size),
+                               0.0).astype(np.float32)
+
+            # Steps 2-5 on the device.
+            self.state, metrics = protocol.gan_round(
+                self.spec, pcfg, self.state, self.data,
+                torch.from_numpy(weights).to(self.device), self.sampler(t))
+
+            wall = round_wallclock(timing, mask, schedule=pcfg.schedule)
+            self._clock += wall
+            fid = None
+            if fid_fn is not None and eval_every and (t + 1) % eval_every == 0:
+                fid = float(fid_fn(self.state["gen"],
+                                   protocol.seeded_generator(
+                                       self.seed, protocol.STREAM_FID, t,
+                                       self.device)))
+            rec = RoundRecord(t, wall, self._clock,
+                              {k: float(v) for k, v in metrics.items()}, fid,
+                              mask=mask.copy(), weights=weights)
+            self.history.append(rec)
+            self._round_index += 1
+            if verbose:
+                self._print_record(rec)
+        return self.history
+
+    @staticmethod
+    def _print_record(rec: RoundRecord):
+        msg = (f"round {rec.round:4d}  t={rec.cumulative_s:9.2f}s  "
+               f"D={rec.metrics.get('disc_objective', float('nan')):+.4f}")
+        if rec.fid is not None:
+            msg += f"  FID={rec.fid:8.2f}"
+        print(msg)

@@ -1,0 +1,21 @@
+"""Batch-norm for the DCGAN (NHWC), in batch-statistics mode."""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def batchnorm_init(c: int, *, device):
+    return {"scale": torch.ones(c, device=device),
+            "bias": torch.zeros(c, device=device)}
+
+
+def batchnorm_apply(params, x, *, eps: float = 1e-5):
+    """Normalizes over (N, H, W) with the current batch's mean and biased
+    variance, always — as `repro.nn.norms.batchnorm_apply` does. There
+    are no running statistics: `training=True` with no running buffers,
+    never a module in eval mode."""
+    y = F.batch_norm(x.permute(0, 3, 1, 2), None, None,
+                     weight=params["scale"], bias=params["bias"],
+                     training=True, eps=eps)
+    return y.permute(0, 2, 3, 1)
