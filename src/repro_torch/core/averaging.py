@@ -17,11 +17,18 @@ compute the same weighted mean, to float32 round-off.)
 NO-SURVIVOR SEMANTICS: a round where every weight is zero has no
 defined average; `fallback` (the previous global) is kept instead, by a
 `torch.where` on the device, with no host sync.
+
+ROBUST REDUCERS: `robust=` (a `RobustConfig`) reduces the same flat
+payload with a robust method of `repro_torch.kernels.robust_avg` and the
+RAW weights (0 = dropped worker) — again one kernel launch per round:
+the trimmed_wavg kernel for "trimmed_mean", the wavg kernel with
+effective weights for "norm_clip" and "krum".
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.robust_avg import ops as robust_ops
 from repro_torch.kernels.wavg import ops as wavg_ops
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -50,15 +57,21 @@ def unflatten_row(flat, like_stacked):
     return tree_unflatten(like_stacked, out)
 
 
-def weighted_average(stacked_params, weights, *, fallback=None):
+def weighted_average(stacked_params, weights, *, robust=None,
+                     fallback=None):
     """stacked_params: tree with leading device axis K; weights: (K,).
 
     Returns the weighted average with the leading axis contracted.
-    `fallback` (unstacked, result-shaped) is returned when the total
-    weight is zero — the no-survivor round keeps the previous global.
+    `robust` (a `RobustConfig`) selects a robust reducer, run with the
+    raw weights. `fallback` (unstacked, result-shaped) is returned when
+    the total weight is zero — the no-survivor round keeps the previous
+    global.
     """
-    avg_flat = wavg_ops.weighted_average(flatten_stacked(stacked_params),
-                                         _normalized(weights))
+    flat = flatten_stacked(stacked_params)
+    if robust is not None:
+        avg_flat = robust_ops.robust_average(flat, weights.float(), robust)
+    else:
+        avg_flat = wavg_ops.weighted_average(flat, _normalized(weights))
     avg = unflatten_row(avg_flat, stacked_params)
     if fallback is None:
         return avg

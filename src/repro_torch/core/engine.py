@@ -2,14 +2,15 @@
 the wireless channel simulator, wall-clock accounting, and periodic
 evaluation — the paper's experimental harness (Figs 3-6).
 
-Port of `repro.core.engine.Trainer` for the slice that runs the paper's
-protocol on one GPU: algorithm "proposed", layout "stacked" (the K
+Port of `repro.core.engine.Trainer` for the slices that run on one
+GPU: algorithms "proposed" and "fedgan", layout "stacked" (the K
 devices stacked on one card) and the host driver (one round per call,
 numpy scheduling and channel state, as in the JAX package's host
 driver, whose masks, weights and wallclock this one matches bit for
-bit). Every other choice of the JAX Trainer — FedGAN, the centralized
-baseline, the fused driver, the mesh layout, tensor parallelism, fault
-programs and robust reducers, microbatching — raises a ValueError.
+bit), with the hostile-worker regime: fault programs (`faults=`) and
+robust reducers (`reducer=`). Every other choice of the JAX Trainer —
+the centralized baseline, the fused driver, the mesh layout, tensor
+parallelism, microbatching — raises a ValueError.
 """
 from __future__ import annotations
 
@@ -20,11 +21,15 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ProtocolConfig
-from repro_torch.core import protocol
+from repro_torch.core import faults as faults_lib
+from repro_torch.core import fedgan, protocol
 from repro_torch.core.channel import (ChannelConfig, ChannelSimulator,
                                       round_wallclock)
 from repro_torch.core.scheduling import SchedulerState, schedule_round
 from repro_torch.device import resolve_device
+from repro_torch.kernels.robust_avg.ops import ROBUST_METHODS, RobustConfig
+
+ALGORITHMS = ("proposed", "fedgan")
 
 
 @dataclasses.dataclass
@@ -38,11 +43,11 @@ class RoundRecord:
     weights: Optional[np.ndarray] = None   # (K,) float32 — Algorithm 2's
 
 
-def _check_scope(algorithm, driver, layout, tp, faults, reducer, pcfg):
+def _check_scope(algorithm, driver, layout, tp, pcfg):
     """Refuse what this port does not run yet, instead of degrading."""
-    if algorithm != "proposed":
+    if algorithm not in ALGORITHMS:
         raise ValueError(f"algorithm={algorithm!r} is not ported; the "
-                         f"port runs algorithm='proposed'")
+                         f"port runs {ALGORITHMS}")
     if driver not in ("auto", "host"):
         raise ValueError(f"driver={driver!r} is not ported; the port "
                          f"runs the host driver ('host' or 'auto')")
@@ -51,22 +56,40 @@ def _check_scope(algorithm, driver, layout, tp, faults, reducer, pcfg):
                          f"runs layout='stacked'")
     if tp != 1:
         raise ValueError(f"tp={tp} is not ported; the port runs tp=1")
-    if faults is not None or reducer not in (None, "mean"):
-        raise ValueError("faults= and reducer= are not ported; the port "
-                         "runs the plain weighted average")
     if pcfg.micro_batch_d is not None or pcfg.micro_batch_g is not None:
         raise ValueError("micro_batch_d/micro_batch_g are not ported; "
                          "leave them None")
 
 
+def _check_faults(faults, reducer, pcfg):
+    """The JAX Trainer's checks of `faults` and `reducer`; returns the
+    reducer as a RobustConfig (None for the plain weighted mean)."""
+    if isinstance(reducer, str):
+        reducer = None if reducer == "mean" else RobustConfig(method=reducer)
+    if reducer is not None and not isinstance(reducer, RobustConfig):
+        raise ValueError(
+            f"reducer must be 'mean', one of {ROBUST_METHODS}, or a "
+            f"RobustConfig (got {reducer!r})")
+    if faults is not None and not isinstance(faults,
+                                             faults_lib.FaultConfig):
+        raise ValueError(f"faults must be a FaultConfig (got {faults!r})")
+    if faults is not None and faults.n_devices != pcfg.n_devices:
+        raise ValueError(
+            f"faults.n_devices={faults.n_devices} must match "
+            f"pcfg.n_devices={pcfg.n_devices}")
+    return reducer
+
+
 class Trainer:
-    """Runs the proposed protocol over a simulated device fleet on one
-    device (CUDA unless `device` names another).
+    """Runs the proposed protocol or FedGAN over a simulated device fleet
+    on one device (CUDA unless `device` names another).
 
     init_fn(generator) -> {"gen", "disc"} builds the initial parameters.
     data_stacked: (K, n_k, ...) array of device shards, or a flat (N, ...)
     array with `partition=` ("iid" | "dirichlet").
     seed: seeds the initial parameters and every round's draws.
+    faults: optional `faults.FaultConfig` (hostile workers); reducer:
+    "mean", a robust method name or a `RobustConfig`.
     sampler: optional t -> `protocol.RoundDraws` replacing the seeded
     `protocol.DrawSampler` (tests feed the JAX package's draws).
     fid_fn(gen_params, generator) is called on evaluation rounds with a
@@ -83,7 +106,8 @@ class Trainer:
                  partition: Optional[str] = None, labels=None,
                  partition_alpha: float = 0.5, partition_seed: int = 0,
                  sampler: Optional[Callable] = None, device=None):
-        _check_scope(algorithm, driver, layout, tp, faults, reducer, pcfg)
+        _check_scope(algorithm, driver, layout, tp, pcfg)
+        reducer = _check_faults(faults, reducer, pcfg)
         self.device = resolve_device(device)
         if partition is not None:
             from repro_torch.data.partition import partition as partition_fn
@@ -97,6 +121,10 @@ class Trainer:
                              f"pcfg.n_devices={pcfg.n_devices}")
 
         self.spec, self.pcfg, self.seed = spec, pcfg, seed
+        self.algorithm = algorithm
+        self._fedgan = algorithm == "fedgan"
+        self.faults, self.reducer = faults, reducer
+        self._fault_prog = faults_lib.fault_program(faults)
         self.n_devices = pcfg.n_devices
         channel_cfg = channel_cfg or ChannelConfig(n_devices=pcfg.n_devices)
         self.channel = ChannelSimulator(channel_cfg)
@@ -107,14 +135,26 @@ class Trainer:
         self.disc_step_flops = disc_step_flops
         self.gen_step_flops = gen_step_flops
 
-        self.state = protocol.make_train_state(init_fn, pcfg, self.n_devices,
-                                               seed=seed, device=self.device)
+        make_state, payload_fn, self._round_fn = (
+            (fedgan.make_fedgan_state,
+             lambda st: {"gen": st["gen"], "disc": st["disc"]},
+             fedgan.fedgan_round) if self._fedgan else
+            (protocol.make_train_state, lambda st: st["disc"],
+             protocol.gan_round))
+        self.state = make_state(init_fn, pcfg, self.n_devices, seed=seed,
+                                device=self.device)
+        # The free-riders' stale-upload cache rides in the state.
+        self.state = faults_lib.attach_fault_state(self.state, faults,
+                                                   payload_fn)
         self._disc_nparams = protocol.count_params(self.state["disc"])
         self._gen_nparams = protocol.count_params(self.state["gen"])
-        self._uplink_bits = protocol.uplink_payload_bits(self.state, pcfg)
+        self._uplink_bits = protocol.uplink_payload_bits(
+            self.state, pcfg, fedgan=self._fedgan)
         self.sampler = sampler or protocol.DrawSampler(
             spec, pcfg, seed=seed, n_local=self.data.shape[1],
-            n_params=self._disc_nparams, device=self.device)
+            n_params=self._disc_nparams + (
+                self._gen_nparams if self._fedgan else 0),
+            device=self.device, faults=faults)
         self.history: list[RoundRecord] = []
         self._clock = 0.0
         self._round_index = 0
@@ -125,26 +165,37 @@ class Trainer:
         pcfg = self.pcfg
         for _ in range(n_rounds):
             t = self._round_index
+            draws = self.sampler(t)
 
-            # Step 1: schedule + channel state (numpy, host).
+            # Step 1: schedule + channel state (numpy, host). Fault
+            # dropout knocks scheduled devices out BEFORE timing, from
+            # the round's host uniforms; stragglers and free-riders scale
+            # the local compute time.
             rates = self.channel.uplink_rates(self.sched.n_scheduled)
             mask = schedule_round(self.sched, rates, self.rng)
+            compute_mult = None
+            if self._fault_prog is not None:
+                mask = mask & ~self._fault_prog.dropout_mask(draws.drop_u)
+                compute_mult = self._fault_prog.compute_mult_np
             timing = self.channel.round_timing(
                 mask=mask, disc_params=self._disc_nparams,
                 gen_params=self._gen_nparams,
                 disc_step_flops=self.disc_step_flops,
                 gen_step_flops=self.gen_step_flops,
-                n_d=pcfg.n_d, n_g=pcfg.n_g, uplink_bits=self._uplink_bits)
+                n_d=pcfg.n_d, n_g=pcfg.n_g, fedgan=self._fedgan,
+                uplink_bits=self._uplink_bits, compute_mult=compute_mult)
             active = mask & ~timing.stragglers
             weights = np.where(active, float(pcfg.sample_size),
                                0.0).astype(np.float32)
 
             # Steps 2-5 on the device.
-            self.state, metrics = protocol.gan_round(
+            self.state, metrics = self._round_fn(
                 self.spec, pcfg, self.state, self.data,
-                torch.from_numpy(weights).to(self.device), self.sampler(t))
+                torch.from_numpy(weights).to(self.device), draws,
+                faults=self.faults, reducer=self.reducer)
 
-            wall = round_wallclock(timing, mask, schedule=pcfg.schedule)
+            wall = round_wallclock(timing, mask, schedule=pcfg.schedule,
+                                   fedgan=self._fedgan)
             self._clock += wall
             fid = None
             if fid_fn is not None and eval_every and (t + 1) % eval_every == 0:

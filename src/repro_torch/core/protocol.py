@@ -18,10 +18,16 @@ devices live on one GPU, Algorithm 1 runs device by device, and
 Algorithm 2 reduces the K uploads in one kernel launch.
 
 RANDOMNESS enters as explicit tensors (`RoundDraws`): the shared noise
-per local and server step, the devices' sample indices and the uplink
-quantizer's uniforms. `DrawSampler` makes them from a seeded
-`torch.Generator` on the round's device; tests pass the JAX package's
-own draws instead, so both packages compute the same round.
+per local and server step, the devices' sample indices, the uplink
+quantizer's uniforms and, under a fault program (`core.faults`), the
+dropout uniforms (on the host) and the byzantine devices' normals.
+`DrawSampler` makes them from seeded generators; tests pass the JAX
+package's own draws instead, so both packages compute the same round.
+
+HOSTILE WORKERS: `gan_round(faults=, reducer=)` corrupts the uploads
+after the quantized uplink (free-riders replay the stale round-start
+global, byzantine devices upload scaled noise) and reduces them with a
+robust reducer (`kernels/robust_avg`) when one is given.
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ProtocolConfig
+from repro_torch.core import faults as faults_lib
 from repro_torch.core import losses, quantize
 from repro_torch.core.averaging import broadcast_like, weighted_average
 from repro_torch.device import resolve_device
@@ -40,9 +47,11 @@ from repro_torch.tree import (tree_index, tree_leaves, tree_map, tree_stack,
                               tree_unflatten)
 
 # Stream tags mixed with the run's seed (`seeded_generator`): one stream
-# per round for the model's randomness, one per round for FID noise.
+# per round for the model's randomness, one per round for FID noise, one
+# per round for the fault program's dropout (a host numpy stream).
 STREAM_ROUND = 0
 STREAM_FID = 1
+STREAM_DROPOUT = 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,13 +78,20 @@ class RoundDraws:
     z_srv:   (n_g, M, nz)  shared noise of server step j
     idx:     (n_d, K, m)   int64 sample indices into device k's shard
     quant_u: (K, N)        stochastic-rounding uniforms of device k's
-                           upload (N discriminator parameters); None when
-                           the uplink is not quantized (>= 32 bits)
+                           upload (N payload parameters); None when the
+                           uplink is not quantized (>= 32 bits)
+    drop_u:  (K,)          numpy, on the HOST: the fault program's dropout
+                           uniforms (None without dropout)
+    byz_normals: (B, N)    standard normals of the B byzantine devices'
+                           forged uploads, in device order (None without
+                           byzantine devices)
     """
     z_dev: torch.Tensor
     z_srv: torch.Tensor
     idx: torch.Tensor
     quant_u: Optional[torch.Tensor]
+    drop_u: Optional[np.ndarray] = None
+    byz_normals: Optional[torch.Tensor] = None
 
 
 def seeded_generator(seed: int, stream: int, index: int,
@@ -93,13 +109,17 @@ class DrawSampler:
     Round t draws from its own generator, seeded from (seed, t). The
     shared noise of step j is ONE draw of max(m, M) rows that devices
     and server both slice (the paper's "identical pseudo random
-    sequence", Section III-A)."""
+    sequence", Section III-A). `n_params` is the size of one device's
+    upload. Under `faults`, the dropout uniforms come from a host numpy
+    stream seeded from (seed, STREAM_DROPOUT, t) and the byzantine
+    normals from the round's device generator."""
 
     def __init__(self, spec: GanModelSpec, pcfg: ProtocolConfig, *,
-                 seed: int, n_local: int, n_params: int, device):
+                 seed: int, n_local: int, n_params: int, device,
+                 faults: Optional[faults_lib.FaultConfig] = None):
         self.spec, self.pcfg = spec, pcfg
         self.seed, self.n_local, self.n_params = seed, n_local, n_params
-        self.device = device
+        self.device, self.faults = device, faults
 
     def __call__(self, t: int) -> RoundDraws:
         pcfg = self.pcfg
@@ -109,12 +129,19 @@ class DrawSampler:
                          for _ in range(max(pcfg.n_d, pcfg.n_g))])
         idx = torch.randint(0, self.n_local, (pcfg.n_d, pcfg.n_devices, m),
                             generator=gen, device=self.device)
-        quant_u = None
+        quant_u = drop_u = byz = None
         if pcfg.quantize_bits < 32:
             quant_u = torch.rand((pcfg.n_devices, self.n_params),
                                  generator=gen, device=self.device)
+        faults = self.faults
+        if faults is not None and faults.dropout_prob > 0:
+            drop_u = np.random.default_rng(np.random.SeedSequence(
+                [self.seed, STREAM_DROPOUT, t])).random(pcfg.n_devices)
+        if faults is not None and faults.n_byzantine > 0:
+            byz = torch.randn((faults.n_byzantine, self.n_params),
+                              generator=gen, device=self.device)
         return RoundDraws(z[:pcfg.n_d, :m], z[:pcfg.n_g, :big_m], idx,
-                          quant_u)
+                          quant_u, drop_u, byz)
 
 
 def make_train_state(init_fn: Callable, pcfg: ProtocolConfig,
@@ -221,17 +248,36 @@ def _check_draws(pcfg: ProtocolConfig, draws: RoundDraws, n_devices: int):
             f" K={n_devices}, m={m}, M={big_m}")
 
 
+def corrupt_uploads(payload, draws: RoundDraws, state, faults=None):
+    """The uploads the server receives under the fault program: the
+    quantized `payload` (stacked K) with the free-riders' rows replaced
+    by `state["fault"]["stale"]` and the byzantine rows by scaled noise
+    (`draws.byz_normals`)."""
+    prog = faults_lib.fault_program(faults)
+    if prog is None or not prog.corrupts:
+        return payload
+    stale = state["fault"]["stale"] if "fault" in state else None
+    return faults_lib.corrupt_upload(prog, payload, draws.byz_normals,
+                                     stale=stale)
+
+
 def gan_round(spec: GanModelSpec, pcfg: ProtocolConfig, state,
-              data_stacked, weights, draws: RoundDraws):
+              data_stacked, weights, draws: RoundDraws, *, faults=None,
+              reducer=None):
     """One full round.
 
     state: {"gen", "disc", "gen_opt", "disc_opt"} — disc is the GLOBAL
            discriminator (post-broadcast) and disc_opt the per-device
-           local optimizer states (stacked K).
+           local optimizer states (stacked K). An optional "fault" entry
+           holds the free-rider stale-upload cache (core/faults.py).
     data_stacked: (K, n_k, ...) tensor — device-private shards.
     weights: (K,) — m_k for scheduled devices, 0 otherwise (Step 1
            output; also encodes straggler exclusion, footnote 1).
     draws: the round's randomness (`RoundDraws`).
+    faults: optional FaultConfig — free-riders replay the stale cache,
+           byzantine devices upload scaled noise (`draws.byz_normals`).
+    reducer: optional RobustConfig — Step 4 aggregates with the robust
+           reducer instead of the plain weighted mean.
     Returns (new_state, metrics) with metrics as 0-dim tensors.
     """
     if pcfg.schedule not in ("serial", "parallel"):
@@ -239,7 +285,9 @@ def gan_round(spec: GanModelSpec, pcfg: ProtocolConfig, state,
     n_devices = weights.shape[0]
     _check_draws(pcfg, draws, n_devices)
 
-    # Step 2 — Algorithm 1 on every device.
+    # Step 2 — Algorithm 1 on every device (free-riders and byzantine
+    # devices too: their optimizer states advance and their objectives
+    # enter the metric, as in the JAX package).
     new_discs, new_disc_opt, disc_objs = devices_update(
         spec, pcfg, state["gen"], state["disc"], state["disc_opt"],
         data_stacked, draws)
@@ -249,9 +297,13 @@ def gan_round(spec: GanModelSpec, pcfg: ProtocolConfig, state,
     new_discs = quantize.roundtrip_stacked(draws.quant_u, new_discs,
                                            pcfg.quantize_bits)
 
-    # Step 4 — Algorithm 2. On a no-survivor round (every weight zero)
-    # the previous global discriminator is kept.
-    disc_avg = weighted_average(new_discs, weights, fallback=state["disc"])
+    # Hostile uploads, where the server receives them (after the
+    # quantized uplink), then Step 4 — Algorithm 2, robust with a
+    # reducer. On a no-survivor round (every weight zero) the previous
+    # global discriminator is kept.
+    new_discs = corrupt_uploads(new_discs, draws, state, faults)
+    disc_avg = weighted_average(new_discs, weights, robust=reducer,
+                                fallback=state["disc"])
 
     # Algorithm 3 — serial: against fresh phi^{t+1}; parallel: against the
     # round-start phi^t.
@@ -268,6 +320,9 @@ def gan_round(spec: GanModelSpec, pcfg: ProtocolConfig, state,
     }
     new_state = {"gen": new_gen, "disc": disc_avg,
                  "gen_opt": new_gen_opt, "disc_opt": new_disc_opt}
+    if "fault" in state:
+        # the free-riders' replay of next round: this round's broadcast
+        new_state["fault"] = {"stale": state["disc"]}
     return new_state, metrics
 
 
@@ -275,7 +330,12 @@ def count_params(tree) -> int:
     return sum(x.numel() for x in tree_leaves(tree))
 
 
-def uplink_payload_bits(state, pcfg: ProtocolConfig) -> int:
+def uplink_payload_bits(state, pcfg: ProtocolConfig, *,
+                        fedgan: bool = False) -> int:
     """Per-device upload payload in bits at the protocol's quantization
-    width: the discriminator only, for the proposed framework."""
-    return quantize.tree_bits(state["disc"], pcfg.quantize_bits)
+    width: phi only for the proposed framework, theta AND phi for FedGAN
+    (the communication asymmetry Fig. 5 measures)."""
+    bits = quantize.tree_bits(state["disc"], pcfg.quantize_bits)
+    if fedgan:
+        bits += quantize.tree_bits(state["gen"], pcfg.quantize_bits)
+    return bits

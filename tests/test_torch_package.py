@@ -67,12 +67,15 @@ def test_chip_smoke_fails_without_a_gpu():
 
 
 def test_kernel_build_without_nvcc_raises():
+    """Every kernel's build: wavg and trimmed_wavg."""
     from repro_torch.kernels import _build
+    from repro_torch.kernels.robust_avg import ops as robust_ops
     from repro_torch.kernels.wavg import ops
     try:
         _build.nvcc_path()
     except RuntimeError:
-        with pytest.raises(RuntimeError, match="nvcc not found"):
-            ops.build()
+        for kernel_ops in (ops, robust_ops):
+            with pytest.raises(RuntimeError, match="nvcc not found"):
+                kernel_ops.build()
     else:
         pytest.skip("nvcc is installed")
