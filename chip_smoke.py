@@ -6,9 +6,9 @@
 Phases, in order; any failure exits non-zero:
   1. device   the card's name and power limit (nvidia-smi); TF32 off for
               matmuls and cuDNN convolutions, so float32 means float32
-  2. build    every kernel of the main paths (wavg, trimmed_wavg),
-              compiled with nvcc from src/repro_torch/csrc/, one nvcc per
-              source, all started together
+  2. build    every kernel of the main paths (wavg, trimmed_wavg,
+              ssd_scan), compiled with nvcc from src/repro_torch/csrc/,
+              one nvcc per source, all started together
   3. kernels  each kernel against its plain PyTorch version at the main
               paths' shapes and at edge shapes; timed with CUDA events
               beside its bound and, where one exists, a PyTorch library
@@ -16,10 +16,11 @@ Phases, in order; any failure exits non-zero:
   4. check    small rounds on the card (kernels) and on the CPU (plain
               versions) from the same draws: one plain protocol round,
               one protocol round and one FedGAN round under a fault
-              program with the trimmed mean
-  5. train    two main paths on the full-width DCGAN (K=10, 64x64),
-              through `Trainer.run`, each with the launch counts set to 0
-              just before it and read just after:
+              program with the trimmed mean, one backbone-GAN round on
+              the reduced mamba2-130m
+  5. train    three main paths, through `Trainer.run`, each with the
+              launch counts set to 0 just before it and read just after;
+              the first two on the full-width DCGAN (K=10, 64x64):
               a. the protocol: 3 serial rounds and 3 parallel rounds with
                  best-channel scheduling at ratio 0.5; one wavg launch per
                  round, finite values, a moving discriminator, one FID
@@ -30,14 +31,21 @@ Phases, in order; any failure exits non-zero:
                  FedGAN: 2 rounds without faults or reducer (two wavg
                  launches each) and 2 under the faults with the trimmed
                  mean (one trimmed_wavg launch each)
-  6. profile  one more protocol round under torch.profiler: device-busy
-              share and the kernels that take the most device time
+              c. the backbone-GAN on the full-width mamba2-130m (K=4,
+                 seq_len 512, token data): 2 serial rounds and 1
+                 parallel round with best-channel scheduling at ratio
+                 0.5; 528 ssd_scan launches and one wavg launch per
+                 round, finite values, one token FID
+  6. profile  one more round of the DCGAN protocol and of the backbone-
+              GAN under torch.profiler: device-busy share and the
+              kernels that take the most device time
 The last two lines are the `kernels` JSON line and
 {"ok": true, "device": {...}}.
 """
 import concurrent.futures
 import copy
 import dataclasses
+import functools
 import json
 import os
 import statistics
@@ -55,11 +63,22 @@ F32_FLOPS_PER_S = 67e12
 
 RTOL, ATOL = 1e-5, 1e-6        # f32 sums of K terms in another order
 K_MAIN, N_MAIN = 10, 2_765_568  # Algorithm 2 on the DCGAN discriminator
+# Algorithm 2 on the full-width mamba2-130m discriminator, K = 4 devices
+K_BACKBONE, N_BACKBONE = 4, 129_574_080
 N_FEDGAN = 6_342_272            # FedGAN's payload: discriminator + generator
 EDGE_N = (1, 3, 2048, 2049)
 EDGE_K = (1, 7, 64)
 TRIM_EDGE_K = (1, 2, 5, 13, 32, 64)   # every KMAX of the kernel
 TRIM_EDGE = (0, 1, 3)
+# The Mamba-2 SSD scan of the full-width mamba2-130m backbone-GAN:
+# b = m = 8 sequences of 512 tokens, 24 heads of 64, one group of 128.
+SSD_MAIN = dict(b=8, s=512, h=24, p=64, g=1, n=128, chunk=128)
+SSD_ATOL, SSD_ATOL_BF16 = 1e-4, 0.05   # as tests/test_kernels.py
+# One backbone round: n_d (L + 2 K L) + n_g 2 L scans, L = 24 layers.
+BACKBONE = dict(k=4, n_d=2, n_g=2, m=8, seq=512, layers=24)
+SSD_PER_ROUND = (BACKBONE["n_d"] * (BACKBONE["layers"] + 2 * BACKBONE["k"]
+                                    * BACKBONE["layers"])
+                 + BACKBONE["n_g"] * 2 * BACKBONE["layers"])
 # The hostile-worker population of the full-width run.
 HOSTILE = dict(n_devices=10, dropout_prob=0.1, n_free_riders=2,
                n_byzantine=2, byz_scale=10.0, straggler_factor=2.0, seed=0)
@@ -89,8 +108,9 @@ def time_ms(fn, inputs, reps=20, per_rep=12, warmup=3):
 
 
 def check_wavg(torch, ops):
-    """Kernel vs plain version at every listed shape; timings at the
-    main-path shape. Returns the kernel's JSON entry (launches unset)."""
+    """Kernel vs plain version at every listed shape; timings at both
+    main-path shapes, the DCGAN's and the mamba2-130m backbone's.
+    Returns the kernel's JSON entry (launches unset)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def inputs(k, n):
@@ -98,7 +118,8 @@ def check_wavg(torch, ops):
         w = torch.rand(k, generator=gen, device="cuda")
         return x, w / w.sum()
 
-    shapes = [(K_MAIN, N_MAIN)] + [(k, n) for k in EDGE_K for n in EDGE_N]
+    mains = [(K_MAIN, N_MAIN), (K_BACKBONE, N_BACKBONE)]
+    shapes = mains + [(k, n) for k in EDGE_K for n in EDGE_N]
     max_err = {}
     for k, n in shapes:
         x, w = inputs(k, n)
@@ -107,31 +128,38 @@ def check_wavg(torch, ops):
         ref = ops.wavg_ref(x, w)
         torch.testing.assert_close(out, ref, rtol=RTOL, atol=ATOL)
         max_err[(k, n)] = float((out - ref).abs().max())
+        del x, w, out, ref
     print(f"wavg matches its plain version at {len(shapes)} shapes "
           f"(rtol {RTOL}, atol {ATOL}); max abs err "
           f"{max(max_err.values()):.3e}")
 
-    # three payloads of 110.6 MB each, together well past the 50 MB L2
-    main = [inputs(K_MAIN, N_MAIN) for _ in range(3)]
-    kernel_ms = time_ms(ops.weighted_average, main)
-    plain_ms = time_ms(ops.wavg_ref, main)
-    library_ms = time_ms(lambda x, w: torch.matmul(w, x), main)
-    n_bytes = (K_MAIN * N_MAIN + K_MAIN + N_MAIN) * 4
-    flops = 2 * K_MAIN * N_MAIN
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    flops_ms = flops / F32_FLOPS_PER_S * 1e3
-    print(f"wavg K={K_MAIN} N={N_MAIN}: kernel {kernel_ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, w @ x {library_ms:.4f} ms, bound "
-          f"{max(bytes_ms, flops_ms):.4f} ms ({n_bytes} B); "
-          f"{bytes_ms / kernel_ms:.3f} of HBM peak")
+    timed = {}
+    for k, n in mains:
+        # three payloads, together well past the 50 MB L2
+        main = [inputs(k, n) for _ in range(3)]
+        kernel_ms = time_ms(ops.weighted_average, main)
+        plain_ms = time_ms(ops.wavg_ref, main)
+        library_ms = time_ms(lambda x, w: torch.matmul(w, x), main)
+        n_bytes = (k * n + k + n) * 4
+        flops = 2 * k * n
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        flops_ms = flops / F32_FLOPS_PER_S * 1e3
+        print(f"wavg K={k} N={n}: kernel {kernel_ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, w @ x {library_ms:.4f} ms, bound "
+              f"{max(bytes_ms, flops_ms):.4f} ms ({n_bytes} B); "
+              f"{bytes_ms / kernel_ms:.3f} of HBM peak")
+        timed[(k, n)] = dict(
+            max_abs_err=max_err[(k, n)], ms=kernel_ms, plain_ms=plain_ms,
+            bound_ms=max(bytes_ms, flops_ms),
+            bound_by="bytes" if bytes_ms >= flops_ms else "operations",
+            library_ms=library_ms)
+        del main
     return {"name": "wavg", "route": "cuda",
             "source": "src/repro_torch/csrc/wavg.cu",
             "replaces": "src/repro/kernels/wavg/kernel.py:31",
-            "launches": None, "max_abs_err": max_err[(K_MAIN, N_MAIN)],
-            "ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, flops_ms),
-            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
-            "library_ms": library_ms}
+            "launches": None, **timed[(K_MAIN, N_MAIN)],
+            "backbone_shape": {"k": K_BACKBONE, "n": N_BACKBONE,
+                               **timed[(K_BACKBONE, N_BACKBONE)]}}
 
 
 def check_trimmed(torch, ops):
@@ -214,6 +242,178 @@ def check_trimmed(torch, ops):
                                max_err[(K_MAIN, N_FEDGAN, 1)]),
             **timed[N_MAIN], "library_ms": None,
             "fedgan_shape": {"n": N_FEDGAN, "trim": 1, **timed[N_FEDGAN]}}
+
+
+def ssd_inputs(torch, gen, b, s, h, p, g, n, *, x_dtype=None,
+               bc_scale=None, strided=False):
+    """x, dt (softplus of normals), A (negative), B, C on the card, the
+    distribution of tests/test_kernels.py::TestSSDScan (n = 8) carried to
+    any n: B and C are scaled by (8 / n) ** 0.5 by default, so the scores
+    C.B^T, and with them |y|, keep that test's spread and its absolute
+    tolerance keeps its meaning. strided=True slices x, B and C out of
+    one (b, s, h*p + 2*g*n) tensor, as the mixer does."""
+    if bc_scale is None:
+        bc_scale = (8 / n) ** 0.5
+    f = functools.partial(torch.randn, generator=gen, device="cuda")
+    if strided:
+        xbc = f((b, s, h * p + 2 * g * n))
+        x = xbc[..., :h * p].reshape(b, s, h, p)
+        B = xbc[..., h * p:h * p + g * n].reshape(b, s, g, n)
+        C = xbc[..., h * p + g * n:].reshape(b, s, g, n)
+    else:
+        x, B, C = f((b, s, h, p)), f((b, s, g, n)), f((b, s, g, n))
+    if x_dtype is not None:
+        x = x.to(x_dtype)
+    dt = torch.nn.functional.softplus(f((b, s, h)))
+    A = -torch.exp(f((h,)) * 0.4)
+    return x, dt, A, B * bc_scale, C * bc_scale
+
+
+def check_ssd(torch, ops, ref, ssm):
+    """The ssd_scan kernel against its plain version (the sequential
+    recurrence) at the main path's shape, with and without the final
+    state, and at edge shapes; timings of the kernel, the plain version
+    and the port's chunked torch scan at the main shape. Returns the
+    kernel's JSON entry (launches unset)."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    edge = [dict(b=2, s=s, h=4, p=64, g=1, n=64, chunk=128)
+            for s in (1, 100, 129, 512)]
+    edge += [dict(b=2, s=200, h=4, p=64, g=1, n=64, chunk=c)
+             for c in (16, 64, 128)]
+    edge += [dict(b=2, s=160, h=4, p=64, g=g, n=64, chunk=128)
+             for g in (1, 2)]
+    edge += [dict(b=2, s=160, h=4, p=p, g=1, n=n, chunk=128)
+             for p in (32, 64, 128) for n in (16, 64, 128)]
+    edge += [dict(b=1, s=300, h=4, p=64, g=2, n=128, chunk=128)]
+    cases = [(SSD_MAIN, dict(strided=True))] + [(c, {}) for c in edge]
+    # bfloat16 x: B and C scaled by n ** -0.5 keep |y| below 8, where
+    # bfloat16's spacing (<= 1/16) stays within the tolerance; y is
+    # rounded to bfloat16 on both sides
+    cases += [(dict(b=2, s=200, h=4, p=64, g=2, n=64, chunk=64),
+               dict(x_dtype=torch.bfloat16, bc_scale=64 ** -0.5)),
+              (dict(SSD_MAIN, b=1), dict(x_dtype=torch.bfloat16,
+                                         bc_scale=128 ** -0.5))]
+    max_err = {}
+    for i, (shape, kw) in enumerate(cases):
+        shape = dict(shape)
+        chunk = shape.pop("chunk")
+        args = ssd_inputs(torch, gen, **shape, **kw)
+        atol = SSD_ATOL if args[0].dtype == torch.float32 else SSD_ATOL_BF16
+        y_plain, st_plain = ref.ssd_scan_plain(*args, chunk=chunk,
+                                               return_final_state=True)
+        y, st = ops.ssd_scan(*args, chunk=chunk, return_final_state=True)
+        y_only = ops.ssd_scan(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        if y.dtype != args[0].dtype or st.dtype != torch.float32:
+            raise AssertionError(f"ssd_scan dtypes {y.dtype}, {st.dtype}")
+        for got, want in ((y, y_plain), (y_only, y_plain), (st, st_plain)):
+            torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                       atol=atol)
+        max_err[i] = max(float((y.float() - y_plain.float()).abs().max()),
+                         float((st - st_plain).abs().max()))
+    print(f"ssd_scan matches its plain version at {len(cases)} shapes, y "
+          f"and final state (atol {SSD_ATOL} f32, {SSD_ATOL_BF16} bf16); "
+          f"max abs err {max(max_err.values()):.3e}, at the main shape "
+          f"{max_err[0]:.3e}")
+
+    main = dict(SSD_MAIN)
+    chunk = main.pop("chunk")
+    # three input sets of ~31 MB each (x, dt, B, C), together past L2
+    sets = [ssd_inputs(torch, gen, **main, strided=True) for _ in range(3)]
+    kernel_ms = time_ms(lambda *a: ops.ssd_scan(*a, chunk=chunk), sets)
+    torch_ms = time_ms(lambda *a: ssm.ssd_scan_ref(*a, chunk=chunk), sets,
+                       reps=5, per_rep=3, warmup=1)
+    plain_ms = time_ms(lambda *a: ref.ssd_scan_plain(*a, chunk=chunk), sets,
+                       reps=3, per_rep=1, warmup=1)
+    b, s, h, p, g, n = (main[k] for k in "b s h p g n".split())
+    n_chunks = -(-s // chunk)
+    # bytes: x, y (f32), dt, A, B and C once each, no repeat of B and C
+    n_bytes = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * g * n)
+    # operations: the least this call (no final state) needs: for every
+    # chunk the causal triangle of C.B^T once per group and of the
+    # score-times-x product per head; per head, C.state for every chunk
+    # but the first (its state is zero) and the state update for every
+    # chunk but the last (nothing reads it)
+    tri = chunk * (chunk + 1) // 2
+    flops = b * (n_chunks * (2 * tri * n * g + h * 2 * tri * p)
+                 + h * 2 * (n_chunks - 1) * 2 * chunk * n * p)
+    # the TPU kernel's algorithm: full L x L blocks, C.B^T per head
+    flops_tpu = b * h * n_chunks * (2 * chunk * chunk * (n + p)
+                                    + 4 * chunk * n * p)
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    flops_ms = flops / F32_FLOPS_PER_S * 1e3
+    print(f"ssd_scan b={b} s={s} h={h} p={p} g={g} n={n} chunk={chunk}: "
+          f"kernel {kernel_ms:.4f} ms, plain (sequential) {plain_ms:.4f} ms, "
+          f"chunked torch scan {torch_ms:.4f} ms; bound "
+          f"{max(bytes_ms, flops_ms):.4f} ms ({n_bytes} B = "
+          f"{bytes_ms:.4f} ms, {flops} flop = {flops_ms:.4f} ms; the TPU "
+          f"kernel's algorithm {flops_tpu} flop = "
+          f"{flops_tpu / F32_FLOPS_PER_S * 1e3:.4f} ms); "
+          f"{flops / kernel_ms / 1e9:.3f} TFLOP/s")
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan/kernel.py:81",
+            "launches": None, "max_abs_err": max_err[0],
+            "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, flops_ms),
+            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+            "library_ms": None, "chunked_torch_ms": torch_ms}
+
+
+def check_backbone_round_against_cpu(torch, ssd_ops):
+    """One backbone-GAN round (SGD, reduced mamba2-130m, seq_len 40: the
+    last chunk of 16 is padded) on the card and on the CPU from the same
+    weights and draws. The card's round (ssd_scan kernel forward, wavg)
+    must agree with the CPU's (plain scans) to float32 round-off, or to
+    one quantization step where a stochastic rounding flips."""
+    from repro_torch.configs import ProtocolConfig, get_arch_config
+    from repro_torch.core import protocol
+    from repro_torch.models import gan
+    from repro_torch.models.specs import make_backbone_spec
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_arch_config("mamba2-130m").reduced()
+    k, seq = 3, 40
+    spec = make_backbone_spec(cfg, seq, remat=False,
+                              gen_loss_variant="nonsaturating")
+    pcfg = ProtocolConfig(n_devices=k, n_d=2, n_g=2, sample_size=4,
+                          server_sample_size=4, lr_d=1e-3, lr_g=1e-3)
+    gen = torch.Generator().manual_seed(4)
+    params = gan.gan_init(gen, cfg)
+    data = torch.randint(0, cfg.vocab, (k, 8, seq), generator=gen)
+    n_params = protocol.count_params(params["disc"])
+    draws = protocol.DrawSampler(spec, pcfg, seed=4, n_local=8,
+                                 n_params=n_params, device="cpu")(0)
+    weights = torch.tensor([4.0, 0.0, 4.0])
+    out = {}
+    for dev in ("cpu", "cuda"):
+        state = protocol.make_train_state(lambda g: params, pcfg, k,
+                                          device=dev)
+        moved = protocol.RoundDraws(
+            *(None if t is None else t.to(dev) for t in
+              (draws.z_dev, draws.z_srv, draws.idx, draws.quant_u)))
+        before = ssd_ops.launches
+        out[dev] = protocol.gan_round(spec, pcfg, state, data.to(dev),
+                                      weights.to(dev), moved)
+    torch.cuda.synchronize()
+    launched = ssd_ops.launches - before
+    (s_cpu, m_cpu), (s_gpu, m_gpu) = out["cpu"], out["cuda"]
+    for a, b in zip(tree_leaves(s_cpu["disc"]), tree_leaves(s_gpu["disc"])):
+        step = float(a.abs().max()) / 32767
+        torch.testing.assert_close(b.cpu(), a, rtol=0, atol=step + 1e-5)
+    for a, b in zip(tree_leaves(s_cpu["gen"]), tree_leaves(s_gpu["gen"])):
+        torch.testing.assert_close(b.cpu(), a, rtol=0, atol=1e-5)
+    for key in m_cpu:
+        torch.testing.assert_close(m_gpu[key].cpu(), m_cpu[key], rtol=0,
+                                   atol=1e-5)
+    layers = cfg.n_layers
+    want = pcfg.n_d * (layers + 2 * k * layers) + pcfg.n_g * 2 * layers
+    if launched != want:
+        raise AssertionError(f"{launched} ssd_scan launches in the small "
+                             f"round, expected {want}")
+    print(f"small backbone-GAN round on the card ({launched} ssd_scan "
+          f"launches) matches the CPU round (D objective "
+          f"{float(m_gpu['disc_objective']):+.6f})")
 
 
 def check_round_against_cpu(torch):
@@ -496,14 +696,114 @@ def train(torch, ops, robust_ops):
     return launches, trainer, (spec, cfg, shards)
 
 
-def profile_round(torch, trainer):
-    """Where a round's time goes: one more parallel round under
-    torch.profiler (after the main path's launch count was read), its
-    device-busy share and the kernels that take the most device time."""
+def train_backbone(torch, wavg_ops, ssd_ops):
+    """The backbone-GAN path: Trainer.run on the full-width mamba2-130m
+    (K=4, n_d=n_g=2, m=M=8, seq_len 512, Adam at 1e-3, 16-bit uplink)
+    over token data, 2 serial rounds with every device scheduled, then 1
+    parallel round with best-channel scheduling at ratio 0.5. Returns the
+    path's launch counts and its last trainer."""
+    import resource
+    import numpy as np
+    from repro_torch.configs import ProtocolConfig, get_arch_config
+    from repro_torch.core import Trainer, protocol
+    from repro_torch.data import make_token_dataset, partition
+    from repro_torch.metrics import fid_score, make_token_feature_extractor
+    from repro_torch.models import gan
+    from repro_torch.models.specs import make_backbone_spec
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_arch_config("mamba2-130m")
+    bb = BACKBONE
+    spec = make_backbone_spec(cfg, bb["seq"], remat=False,
+                              gen_loss_variant="nonsaturating")
+    t0 = time.perf_counter()
+    toks, _ = make_token_dataset(bb["k"] * 32, bb["seq"], cfg.vocab)
+    print(f"token data ({bb['k'] * 32} x {bb['seq']}, vocab {cfg.vocab}): "
+          f"{time.perf_counter() - t0:.2f} s on the host, peak RSS "
+          f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.2f}"
+          f" GiB")
+    shards = partition(toks, bb["k"])
+    runs = [(2, dict(schedule="serial", scheduler="all",
+                     scheduling_ratio=1.0)),
+            (1, dict(schedule="parallel", scheduler="best_channel",
+                     scheduling_ratio=0.5))]
+
+    wavg_ops.launches = ssd_ops.launches = 0   # the path starts here
+    trainer = None
+    for n_rounds, run in runs:
+        pcfg = ProtocolConfig(n_devices=bb["k"], n_d=bb["n_d"],
+                              n_g=bb["n_g"], sample_size=bb["m"],
+                              server_sample_size=bb["m"], lr_d=1e-3,
+                              lr_g=1e-3, optimizer="adam", **run)
+        trainer = None                       # free the last run's state
+        trainer = Trainer(spec, pcfg, lambda g: gan.gan_init(g, cfg),
+                          shards, seed=0)
+        n_gen = protocol.count_params(trainer.state["gen"])
+        n_disc = protocol.count_params(trainer.state["disc"])
+        if (n_gen, n_disc) != (168_286_656, 129_574_080):
+            raise AssertionError(f"mamba2-130m sizes {n_gen}, {n_disc}")
+        if trainer.data.dtype != torch.int64:
+            raise AssertionError(f"token shards as {trainer.data.dtype}")
+        for _ in range(n_rounds):
+            before = (wavg_ops.launches, ssd_ops.launches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rec = trainer.run(1)[-1]
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            got = (wavg_ops.launches - before[0],
+                   ssd_ops.launches - before[1])
+            if got != (1, SSD_PER_ROUND):
+                raise AssertionError(f"backbone round {rec.round}: (wavg, "
+                                     f"ssd_scan) launches {got}, expected "
+                                     f"(1, {SSD_PER_ROUND})")
+            if not all(np.isfinite(v) for v in rec.metrics.values()):
+                raise AssertionError(f"non-finite objectives {rec.metrics}")
+            print(f"backbone {run['schedule']:8s} round {rec.round}: "
+                  f"D {rec.metrics['disc_objective']:+.5f}  "
+                  f"G {rec.metrics['gen_objective']:+.5f}  "
+                  f"weights {rec.weights.tolist()}  {secs:.3f} s")
+        if not all(bool(torch.isfinite(x).all())
+                   for x in tree_leaves(trainer.state)
+                   if x.is_floating_point()):
+            raise AssertionError("non-finite backbone-GAN parameters")
+        if run["scheduler"] == "best_channel" and not all(
+                (r.weights == 0).sum() == 2 for r in trainer.history):
+            raise AssertionError("best_channel at 0.5 must drop 2 of 4")
+    launches = {"wavg": wavg_ops.launches,     # ... and ends here
+                "ssd_scan": ssd_ops.launches}
+    n_total = sum(r[0] for r in runs)
+    if launches != {"wavg": n_total, "ssd_scan": n_total * SSD_PER_ROUND}:
+        raise AssertionError(f"backbone path launches {launches} over "
+                             f"{n_total} rounds")
+    print(f"backbone path: {n_gen} G / {n_disc} D parameters; "
+          f"{launches['wavg']} wavg and {launches['ssd_scan']} ssd_scan "
+          f"launches over {n_total} rounds")
+
+    feat = make_token_feature_extractor(cfg.vocab)
+    real = feat(torch.as_tensor(toks[:128], device="cuda"))
+    with torch.no_grad():
+        z = spec.sample_z(torch.Generator("cuda").manual_seed(0), 64)
+        fake = spec.gen_apply(trainer.state["gen"], z)
+    fid = fid_score(real, feat(fake))
+    if not np.isfinite(fid):
+        raise AssertionError(f"token FID {fid}")
+    print(f"token FID after the last backbone round: {fid:.4f}")
+    return launches, trainer
+
+
+def profile_round(torch, trainer, label, *, host_ops=True):
+    """Where a round's time goes: one more round of `trainer` under
+    torch.profiler (after the main paths' launch counts were read), its
+    device-busy share and the kernels that take the most device time.
+    host_ops=False records the device's kernels only (a backbone round
+    issues ~250,000 of them, and the host-side events would multiply
+    the profiler's own work)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + (
+        [ProfilerActivity.CPU] if host_ops else [])
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         trainer.run(1)
         torch.cuda.synchronize()
@@ -515,18 +815,26 @@ def profile_round(torch, trainer):
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + e.time_range.elapsed_us())
     if not spans:
-        print("profile: the profiler saw no device events; device busy "
-              "share not measured")
+        print(f"profile of one {label} round: the profiler saw no device "
+              f"events; device busy share not measured")
         return
     busy_us, end = 0.0, float("-inf")
     for start, stop in sorted(spans):      # union of kernel intervals
         busy_us += max(0.0, stop - max(start, end))
         end = max(end, stop)
-    print(f"profile of one round (profiler on): {wall_s:.3f} s wall, "
+    print(f"profile of one {label} round (profiler on): {wall_s:.3f} s wall, "
           f"{busy_us / 1e6:.3f} s device busy "
           f"({busy_us / 1e6 / wall_s:.3f}), {len(spans)} device ops")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f"  {us / 1e3:9.3f} ms  {name[:100]}")
+
+
+T_START = time.perf_counter()
+
+
+def stamp(phase):
+    """Seconds since the script started, at the end of a phase."""
+    print(f"[{time.perf_counter() - T_START:7.1f} s] {phase} done")
 
 
 def main() -> int:
@@ -535,7 +843,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from repro_torch.kernels.robust_avg import ops as robust_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
     from repro_torch.kernels.wavg import ops
+    from repro_torch.nn import ssm
 
     # 1. device
     card = subprocess.run(
@@ -552,31 +863,52 @@ def main() -> int:
     # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor() as pool:
-        list(pool.map(lambda m: m.build(), (ops, robust_ops)))
-    print(f"built wavg and trimmed_wavg in {time.perf_counter() - t0:.2f} s")
+        list(pool.map(lambda m: m.build(), (ops, robust_ops, ssd_ops)))
+    print(f"built wavg, trimmed_wavg and ssd_scan in "
+          f"{time.perf_counter() - t0:.2f} s")
+    stamp("build")
 
     # 3. kernels
     wavg = check_wavg(torch, ops)
     trimmed = check_trimmed(torch, robust_ops)
+    ssd = check_ssd(torch, ssd_ops, ssd_ref, ssm)
+    stamp("kernels")
 
     # 4. small rounds, card vs CPU
     check_round_against_cpu(torch)
     check_faulted_rounds_against_cpu(torch)
+    check_backbone_round_against_cpu(torch, ssd_ops)
+    stamp("check")
 
-    # 5. train: the protocol's path, then the hostile-worker path
+    # 5. train: the protocol's path, the hostile-worker path, then the
+    # backbone-GAN path
     protocol_launches, trainer, setup = train(torch, ops, robust_ops)
     hostile = train_hostile(torch, ops, robust_ops, *setup)
-    wavg["launches"] = protocol_launches + hostile["wavg"]
+    del setup
+    stamp("train: DCGAN protocol and hostile paths")
+    backbone, backbone_trainer = train_backbone(torch, ops, ssd_ops)
+    stamp("train: backbone path")
+    if robust_ops.launches != hostile["trimmed_wavg"]:
+        raise AssertionError("trimmed_wavg launched on the backbone path")
+    wavg["launches"] = protocol_launches + hostile["wavg"] + backbone["wavg"]
     wavg["launches_by_path"] = {"protocol": protocol_launches,
-                                "hostile": hostile["wavg"]}
+                                "hostile": hostile["wavg"],
+                                "backbone": backbone["wavg"]}
     trimmed["launches"] = hostile["trimmed_wavg"]
     trimmed["launches_by_path"] = {"protocol": 0,
-                                   "hostile": hostile["trimmed_wavg"]}
+                                   "hostile": hostile["trimmed_wavg"],
+                                   "backbone": 0}
+    ssd["launches"] = backbone["ssd_scan"]
+    ssd["launches_by_path"] = {"protocol": 0, "hostile": 0,
+                               "backbone": backbone["ssd_scan"]}
 
     # 6. where a round's time goes
-    profile_round(torch, trainer)
+    profile_round(torch, trainer, "DCGAN protocol")
+    del trainer
+    profile_round(torch, backbone_trainer, "backbone-GAN", host_ops=False)
+    stamp("profile")
 
-    print(json.dumps({"kernels": [wavg, trimmed]}))
+    print(json.dumps({"kernels": [wavg, trimmed, ssd]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,4 +1,34 @@
-from repro_torch.configs.base import ProtocolConfig
+"""Configurations: ``get_arch_config(name)`` / ``list_archs()`` for the
+architectures the port runs, and the protocol and DCGAN configs."""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import (ArchConfig, MoEConfig, ProtocolConfig,
+                                      SSMConfig)
 from repro_torch.configs.dcgan import DCGANConfig
 
-__all__ = ["ProtocolConfig", "DCGANConfig"]
+# Canonical (dashed) ids of the ported architectures, mapped to modules.
+# The JAX package registers nine more (attention, MoE, hybrid, encoder-
+# decoder and vision families); they wait for ROADMAP A13.
+CANONICAL = {"mamba2-130m": "mamba2_130m"}
+
+
+def get_arch_config(name: str):
+    """The ArchConfig of a ported architecture (or the DCGANConfig for
+    "dcgan"); any other name raises."""
+    if name == "dcgan":
+        return DCGANConfig()
+    mod_name = CANONICAL.get(name, name.replace("-", "_").replace(".", "_"))
+    if mod_name not in CANONICAL.values():
+        raise KeyError(f"architecture {name!r} is not ported (ROADMAP A13); "
+                       f"the port has {sorted(CANONICAL)} and 'dcgan'")
+    return importlib.import_module(f"repro_torch.configs.{mod_name}").config()
+
+
+def list_archs():
+    return list(CANONICAL.keys())
+
+
+__all__ = ["ArchConfig", "MoEConfig", "SSMConfig", "ProtocolConfig",
+           "DCGANConfig", "get_arch_config", "list_archs"]

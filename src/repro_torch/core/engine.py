@@ -114,8 +114,11 @@ class Trainer:
             data_stacked = partition_fn(
                 np.asarray(data_stacked), pcfg.n_devices, labels=labels,
                 kind=partition, alpha=partition_alpha, seed=partition_seed)
-        self.data = torch.as_tensor(data_stacked, dtype=torch.float32,
-                                    device=self.device)
+        # Integer shards (token ids) stay integers, as in the JAX Trainer;
+        # everything else is float32.
+        data = torch.as_tensor(data_stacked)
+        self.data = data.to(self.device, torch.int64
+                            if not data.is_floating_point() else torch.float32)
         if self.data.shape[0] != pcfg.n_devices:
             raise ValueError(f"data has {self.data.shape[0]} shards for "
                              f"pcfg.n_devices={pcfg.n_devices}")

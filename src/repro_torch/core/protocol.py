@@ -74,8 +74,10 @@ class GanModelSpec:
 class RoundDraws:
     """All of one round's randomness, as tensors on the round's device.
 
-    z_dev:   (n_d, m, nz)  shared noise of local step j (every device)
-    z_srv:   (n_g, M, nz)  shared noise of server step j
+    z_dev:   (n_d, m, ...) shared noise of local step j (every device):
+                           (n_d, m, nz) for the DCGAN, (n_d, m, seq_len,
+                           d_z) for a backbone-GAN
+    z_srv:   (n_g, M, ...) shared noise of server step j
     idx:     (n_d, K, m)   int64 sample indices into device k's shard
     quant_u: (K, N)        stochastic-rounding uniforms of device k's
                            upload (N payload parameters); None when the
@@ -166,7 +168,11 @@ def _value_and_grad(objective: Callable, params):
     """(objective(params), d objective / d params) for a parameter tree."""
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
     value = objective(tree_unflatten(params, leaves))
-    grads = torch.autograd.grad(value, leaves)
+    # A leaf the objective does not reach (the backbone generator's
+    # embedding table and lm_head in GAN mode) gets a zero gradient, as
+    # under jax.grad.
+    grads = torch.autograd.grad(value, leaves, allow_unused=True,
+                                materialize_grads=True)
     return value.detach(), tree_unflatten(params, list(grads))
 
 

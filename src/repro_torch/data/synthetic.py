@@ -1,9 +1,10 @@
-"""Synthetic stand-ins for the paper's image datasets.
+"""Synthetic stand-ins for the paper's datasets.
 
-A numpy copy of the image half of `repro.data.synthetic`: the same seed
-gives bit-identical arrays. CelebA / CIFAR-10 / RSNA Pneumonia are
-modeled by a Gaussian mixture over low-frequency image patterns with the
-datasets' geometry, so nothing has to be downloaded.
+A numpy copy of `repro.data.synthetic`: the same seed gives bit-identical
+arrays. CelebA / CIFAR-10 / RSNA Pneumonia are modeled by a Gaussian
+mixture over low-frequency image patterns with the datasets' geometry,
+token data by a mixture of Markov chains, so nothing has to be
+downloaded.
 """
 from __future__ import annotations
 
@@ -58,3 +59,28 @@ def make_image_dataset(name: str, n: int, *, seed: int = 0,
         (n, spec.image_size, spec.image_size, spec.channels))
     imgs = np.tanh(imgs).astype(np.float32)   # squash into (-1, 1)
     return imgs, labels.astype(np.int32)
+
+
+def make_token_dataset(n: int, seq_len: int, vocab: int, *, seed: int = 0,
+                       n_modes: int = 8, order: int = 2):
+    """Synthetic token sequences from a mixture of Markov chains — the
+    text-world analogue of the image mixture (for backbone-GAN training).
+    Returns (tokens (n, seq_len) int32, mode_labels (n,)).
+
+    The transition tables are one (n_modes, vocab, vocab // 16) int64
+    draw: 10.1 GB of host memory at vocab 50280."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, n_modes, n)
+    # per-mode sparse transition structure
+    out = np.empty((n, seq_len), dtype=np.int32)
+    branch = max(2, vocab // 16)
+    tables = rng.integers(0, vocab, (n_modes, vocab, branch))
+    for i in range(n):
+        t = tables[labels[i]]
+        seq = np.empty(seq_len, dtype=np.int64)
+        seq[0] = rng.integers(0, vocab)
+        choices = rng.integers(0, branch, seq_len)
+        for j in range(1, seq_len):
+            seq[j] = t[seq[j - 1], choices[j]]
+        out[i] = seq
+    return out, labels.astype(np.int32)

@@ -1,0 +1,179 @@
+"""Wrapper of the hand-written Hopper ssd_scan kernel (the Mamba-2 SSD
+chunked scan), a drop-in for `repro_torch.nn.ssm.ssd_scan_ref` through
+the mixer's `scan_impl` hook, as `repro.kernels.ssd_scan.ops.ssd_scan`
+is for the JAX package.
+
+A CUDA tensor launches the kernel in `repro_torch/csrc/ssd_scan.cu` or
+raises; a CPU tensor takes the plain version (`ref.ssd_scan_plain`), and
+only because it lies on the CPU. `launches` counts kernel launches, so a
+run can show that its mixers went through the kernel.
+
+The gradient: the JAX package has no backward kernel for the scan (its
+training gradient is autodiff of `repro.nn.ssm.ssd_scan_ref`). Here
+`SSDScan`, a `torch.autograd.Function`, runs the kernel forward, saves
+its inputs, and back-propagates through a recomputation of the port's
+`nn.ssm.ssd_scan_ref`. Its forward is a parameter, so a CPU test runs
+the same Function with the plain forward in place of the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels._build import load_library
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_plain
+
+# Kernel launches since import (or since a caller reset it to 0).
+launches = 0
+
+# What the kernel takes: a chunk of at most MAX_CHUNK tokens (a multiple
+# of 4), d_state n <= MAX_N (a multiple of 4), head_dim p = 32 or a
+# multiple of 64 (one block per 64 columns). Its largest shared-memory
+# need, chunk 128 with n 128, is 221,696 of the 232,448 bytes a block
+# can have.
+MAX_CHUNK, MAX_N, P_TILE = 128, 128, 64
+
+
+# The C entry point's parameters: x, dt, A, B, C, y, state, stream;
+# b, s, h, p, g, n, chunk, bf16; the strides of x, dt, B and C over
+# (batch, sequence, head or group).
+ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+            + [ctypes.c_longlong] * 12)
+
+
+@functools.cache
+def _kernel():
+    fn = load_library("ssd_scan", ("ssd_scan.cu",)).ssd_scan
+    fn.argtypes = ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def build():
+    """Compile (if needed) and load the kernel library."""
+    _kernel()
+
+
+def _check(x, dt, A, B, C, chunk):
+    if x.dim() != 4 or dt.dim() != 3 or A.dim() != 1 or B.dim() != 4:
+        raise ValueError("ssd_scan takes x (b, s, h, p), dt (b, s, h), "
+                         "A (h,), B and C (b, s, g, n)")
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    if (tuple(dt.shape) != (b, s, h) or tuple(A.shape) != (h,)
+            or tuple(B.shape) != (b, s, g, n) or C.shape != B.shape):
+        raise ValueError(f"shapes do not agree: x {tuple(x.shape)}, dt "
+                         f"{tuple(dt.shape)}, A {tuple(A.shape)}, B "
+                         f"{tuple(B.shape)}, C {tuple(C.shape)}")
+    if h % g:
+        raise ValueError(f"{h} heads do not split into {g} groups")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"ssd_scan takes float32 or bfloat16 x, not "
+                         f"{x.dtype}")
+    devices = {t.device for t in (x, dt, A, B, C)}
+    if len(devices) != 1:
+        raise ValueError(f"inputs on several devices: {devices}")
+    if min(b, s, h, p, g, n) < 1 or chunk < 1:
+        raise ValueError("empty input")
+    return b, s, h, p, g, n
+
+
+def _kernel_forward(x, dt, A, B, C, chunk, return_final_state):
+    """Launch the kernel: y (b, s, h, p) in x's dtype and, when asked,
+    the final state (b, h, n, p) float32."""
+    global launches
+    b, s, h, p, g, n = _check(x, dt, A, B, C, chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"the ssd_scan kernel runs on CUDA tensors, not "
+                         f"{x.device}")
+    chunk = min(chunk, s + (-s) % 4)   # no longer than the padded sequence
+    chunk += (-chunk) % 4
+    if chunk > MAX_CHUNK or n > MAX_N or n % 4 or not (
+            p == 32 or p % P_TILE == 0):
+        raise ValueError(f"the ssd_scan kernel takes chunk <= {MAX_CHUNK}, "
+                         f"n <= {MAX_N} with n % 4 == 0, and p == 32 or "
+                         f"p % {P_TILE} == 0; got chunk={chunk}, n={n}, "
+                         f"p={p}")
+    # The kernel reads x, B and C through their strides (unit stride in
+    # the last dimension), so the mixer's slices of one projection need
+    # no copy; dt, A, B and C are read as float32.
+    x = x if x.stride(-1) == 1 else x.contiguous()
+    dt, A = dt.float(), A.float().contiguous()
+    B, C = (t.float() if t.stride(-1) == 1 and t.dtype == torch.float32
+            else t.float().contiguous() for t in (B, C))
+    y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
+    state = (torch.empty((b, h, n, p), dtype=torch.float32, device=x.device)
+             if return_final_state else None)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _kernel()(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), y.data_ptr(),
+            state.data_ptr() if state is not None else None, stream,
+            b, s, h, p, g, n, chunk, int(x.dtype == torch.bfloat16),
+            *x.stride()[:3], *dt.stride(), *B.stride()[:3], *C.stride()[:3])
+    if err != 0:
+        raise RuntimeError(f"ssd_scan kernel launch failed with CUDA error "
+                           f"{err}")
+    launches += 1
+    return y, state
+
+
+def _plain_forward(x, dt, A, B, C, chunk, return_final_state):
+    _check(x, dt, A, B, C, chunk)
+    y, state = ssd_scan_plain(x, dt, A, B, C, chunk=chunk,
+                              return_final_state=True)
+    return y, (state if return_final_state else None)
+
+
+class SSDScan(torch.autograd.Function):
+    """forward(fwd, x, dt, A, B, C, chunk, return_final_state): `fwd`
+    computes (y, final state or None); the backward recomputes
+    `nn.ssm.ssd_scan_ref` on the saved inputs and back-propagates
+    through it."""
+
+    @staticmethod
+    def forward(ctx, fwd, x, dt, A, B, C, chunk, return_final_state):
+        y, state = fwd(x, dt, A, B, C, chunk, return_final_state)
+        ctx.save_for_backward(x, dt, A, B, C)
+        ctx.chunk, ctx.return_final_state = chunk, return_final_state
+        return (y, state) if return_final_state else y
+
+    @staticmethod
+    def backward(ctx, *grads):
+        from repro_torch.nn.ssm import ssd_scan_ref
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = ssd_scan_ref(*inputs, chunk=ctx.chunk,
+                               return_final_state=ctx.return_final_state)
+            outs = out if ctx.return_final_state else (out,)
+            need = [t for t, want in zip(inputs, ctx.needs_input_grad[1:6])
+                    if want]
+            got = iter(torch.autograd.grad(outs, need, grads)
+                       if need else ())
+        return (None, *(next(got) if want else None
+                        for want in ctx.needs_input_grad[1:6]), None, None)
+
+
+def ssd_scan(x, dt, A, B, C, *, chunk: int = 128, initial_state=None,
+             return_final_state: bool = False):
+    """Drop-in for `nn.ssm.ssd_scan_ref`: x (b, s, h, p); dt (b, s, h);
+    A (h,); B, C (b, s, g, n). The scan starts from a zero state
+    (`initial_state` is not supported, as in the JAX kernel); a sequence
+    that is not a multiple of `chunk` runs as if padded with dt = 0
+    steps, which leave the state unchanged."""
+    if initial_state is not None:
+        raise ValueError("the ssd_scan kernel starts from a zero state")
+    if x.device.type == "cpu":
+        fwd = _plain_forward
+    elif x.device.type == "cuda":
+        fwd = _kernel_forward
+    else:
+        raise ValueError(f"ssd_scan runs on CUDA or CPU tensors, not "
+                         f"{x.device}")
+    return SSDScan.apply(fwd, x, dt, A, B, C, chunk, return_final_state)
+
+
+__all__ = ["ssd_scan", "SSDScan", "ssd_scan_plain", "build"]

@@ -48,6 +48,50 @@ def make_feature_extractor(channels: int, *, feat_dim: int = 64,
     return features
 
 
+def make_token_feature_extractor(vocab: int, *, feat_dim: int = 64,
+                                 seed: int = 42, weights=None, device=None):
+    """Fixed random features for token/embedding sequences, as in the
+    JAX package: (b, s) integer tokens -> rows of a (vocab, feat_dim)
+    table; (b, s, d) embeddings -> tanh(x @ proj) with a (d, feat_dim)
+    projection; then the sequence mean and the population std (ddof 0,
+    as `jnp.std`) of tanh of those, (b, 2 * feat_dim).
+
+    weights: optional {"table": (vocab, feat_dim), "proj": (d, feat_dim)}
+    (proj already scaled by d ** -0.5); by default the table is
+    0.3 * N(0, 1) and proj N(0, 1) * d ** -0.5, drawn from CPU generators
+    seeded with `seed`, so every device gets the same.
+    """
+    device = resolve_device(device)
+    if weights is None:
+        gen = torch.Generator().manual_seed(seed)
+        table = torch.randn((vocab, feat_dim), generator=gen) * 0.3
+        proj = None
+    else:
+        table = torch.tensor(np.asarray(weights["table"]))
+        proj = torch.tensor(np.asarray(weights["proj"]))
+    table = table.float().to(device)
+    projs = {} if proj is None else {proj.shape[0]: proj.float().to(device)}
+
+    def projection(d):
+        if d not in projs:
+            gen = torch.Generator().manual_seed(seed + 1)
+            projs[d] = (torch.randn((d, feat_dim), generator=gen)
+                        * d ** -0.5).to(device)
+        return projs[d]
+
+    @torch.no_grad()
+    def features(x):
+        if x.dim() == 2:                      # token ids
+            e = table[x.to(device).long()]
+        else:
+            e = torch.tanh(x.float() @ projection(x.shape[-1]))
+        # first + second order sequence statistics
+        return torch.cat([e.mean(1), torch.tanh(e).std(1, correction=0)],
+                         dim=-1)
+
+    return features
+
+
 def _as_numpy(feats) -> np.ndarray:
     if isinstance(feats, torch.Tensor):
         feats = feats.detach().cpu().numpy()

@@ -1,0 +1,94 @@
+"""The backbone-GAN (port of `repro.models.gan` for the `ssm` family):
+
+  Generator      noise z (b, s, d_z) --z_proj--> backbone --out_proj-->
+                 synthetic embedding sequence (b, s, d_model). It also
+                 carries an embedding table and an lm_head (the LM mode
+                 of serving); GAN training does not use them, but they
+                 are kept so that parameter counts, uplink bits and the
+                 tree match the JAX package.
+
+  Discriminator  embedding sequence --in_proj--> backbone --mean-pool-->
+                 scalar real/fake logit. Real token data enters through
+                 the discriminator's own embedding table.
+
+Conditioned families (encoder-decoder, vision) and the LM mode wait for
+ROADMAP A13 and A14.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch import nn
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.backbone import backbone_apply, backbone_init
+from repro_torch.nn import initializers
+
+
+def disc_config(cfg: ArchConfig) -> ArchConfig:
+    if cfg.disc_layers is None:
+        return cfg
+    return dataclasses.replace(cfg, n_layers=cfg.disc_layers, disc_layers=None)
+
+
+# ---------------------------------------------------------------------------
+# Generator
+# ---------------------------------------------------------------------------
+
+def generator_init(generator: torch.Generator, cfg: ArchConfig):
+    return {
+        "z_proj": initializers.lecun_normal(generator, (cfg.d_z, cfg.d_model)),
+        "backbone": backbone_init(generator, cfg),
+        "out_proj": initializers.lecun_normal(generator,
+                                              (cfg.d_model, cfg.d_model)),
+        "embed": nn.embedding_init(generator, cfg.vocab, cfg.d_model),
+        "lm_head": initializers.lecun_normal(generator,
+                                             (cfg.d_model, cfg.vocab)),
+    }
+
+
+def generator_apply(params, cfg: ArchConfig, z, *, remat: bool = True):
+    """GAN mode: noise sequence -> (synthetic embedding sequence
+    (b, s, d), aux)."""
+    h = z @ params["z_proj"].to(z.dtype)
+    out = backbone_apply(params["backbone"], cfg, h, mode="train",
+                         remat=remat)
+    fake = out["h"] @ params["out_proj"].to(h.dtype)
+    return fake, out["aux"]
+
+
+# ---------------------------------------------------------------------------
+# Discriminator
+# ---------------------------------------------------------------------------
+
+def discriminator_init(generator: torch.Generator, cfg: ArchConfig):
+    return {
+        "in_proj": initializers.lecun_normal(generator,
+                                             (cfg.d_model, cfg.d_model)),
+        "backbone": backbone_init(generator, disc_config(cfg)),
+        "embed": nn.embedding_init(generator, cfg.vocab, cfg.d_model),
+        "score": initializers.lecun_normal(generator, (cfg.d_model, 1)),
+    }
+
+
+def discriminator_embed(params, tokens):
+    """Embed real token data into the discriminator's input space."""
+    return nn.embedding_apply(params["embed"], tokens)
+
+
+def discriminator_apply(params, cfg: ArchConfig, x_embed, *,
+                        remat: bool = True):
+    """x_embed: (b, s, d) — real (embedded tokens) or fake (generator
+    out). Returns (per-example logits (b,), aux)."""
+    h = x_embed @ params["in_proj"].to(x_embed.dtype)
+    out = backbone_apply(params["backbone"], disc_config(cfg), h,
+                         mode="train", remat=remat)
+    pooled = torch.mean(out["h"].float(), dim=1)
+    logit = pooled @ params["score"].float()
+    return logit[..., 0], out["aux"]
+
+
+def gan_init(generator: torch.Generator, cfg: ArchConfig):
+    return {"gen": generator_init(generator, cfg),
+            "disc": discriminator_init(generator, cfg)}

@@ -3,9 +3,11 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.dcgan import DCGANConfig
 from repro_torch.core.protocol import GanModelSpec
 from repro_torch.models import dcgan as dcgan_model
+from repro_torch.models import gan as gan_model
 
 
 def make_dcgan_spec(cfg: DCGANConfig, *,
@@ -19,3 +21,37 @@ def make_dcgan_spec(cfg: DCGANConfig, *,
         disc_fake=lambda disc, f: dcgan_model.discriminator_apply(disc, cfg, f),
         gen_loss_variant=gen_loss_variant,
     )
+
+
+def make_backbone_spec(cfg: ArchConfig, seq_len: int, *, enc_feats_fn=None,
+                       remat: bool = True,
+                       gen_loss_variant: str = "minimax") -> GanModelSpec:
+    """Backbone-GAN over token data.
+
+    Real batches are integer token arrays (m, seq_len); they enter the
+    discriminator through its embedding table. Fakes are generator
+    embedding sequences (m, seq_len, d). `sample_z(generator, n)` draws
+    (n, seq_len, d_z) noise. Conditioned families (`enc_feats_fn`) are
+    not ported (ROADMAP A13), nor tensor parallelism (A12).
+    """
+    if enc_feats_fn is not None:
+        raise NotImplementedError("conditioned backbone-GANs (enc_feats_fn) "
+                                  "are not ported (ROADMAP A13)")
+
+    def sample_z(generator, n):
+        return torch.randn((n, seq_len, cfg.d_z), generator=generator,
+                           device=generator.device)
+
+    def gen_apply(gen, z):
+        return gan_model.generator_apply(gen, cfg, z, remat=remat)[0]
+
+    def disc_real(disc, tokens):
+        x = gan_model.discriminator_embed(disc, tokens)
+        return gan_model.discriminator_apply(disc, cfg, x, remat=remat)[0]
+
+    def disc_fake(disc, fake):
+        return gan_model.discriminator_apply(disc, cfg, fake, remat=remat)[0]
+
+    return GanModelSpec(sample_z=sample_z, gen_apply=gen_apply,
+                        disc_real=disc_real, disc_fake=disc_fake,
+                        gen_loss_variant=gen_loss_variant)

@@ -1,4 +1,5 @@
-"""Batch-norm for the DCGAN (NHWC), in batch-statistics mode."""
+"""Normalization layers: RMSNorm (the backbones) and batch-norm for the
+DCGAN (NHWC), in batch-statistics mode."""
 from __future__ import annotations
 
 import torch
@@ -19,3 +20,17 @@ def batchnorm_apply(params, x, *, eps: float = 1e-5):
                      weight=params["scale"], bias=params["bias"],
                      training=True, eps=eps)
     return y.permute(0, 2, 3, 1)
+
+
+def rmsnorm_init(d: int, *, device=None):
+    return {"scale": torch.ones(d, device=device)}
+
+
+def rmsnorm_apply(params, x, *, eps: float = 1e-6):
+    """In float32 with `(var + eps) ** -0.5`, as the JAX package computes
+    it; the result takes x's dtype."""
+    dtype = x.dtype
+    x = x.float()
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    y = x * (var + eps) ** -0.5
+    return (y * params["scale"].float()).to(dtype)

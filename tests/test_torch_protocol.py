@@ -40,9 +40,14 @@ KEY = jax.random.PRNGKey(0)
 class JaxDraws:
     """The JAX package's randomness for a round, as the port's draws."""
 
-    def __init__(self, key, pcfg, nz, n_local, n_params, device="cpu"):
+    def __init__(self, key, pcfg, nz, n_local, n_params, device="cpu",
+                 sample_z=None):
+        """sample_z(key, n): the JAX spec's noise draw; by default the
+        DCGAN's (n, nz) normals."""
         self.key, self.pcfg, self.nz = key, pcfg, nz
         self.n_local, self.n_params, self.device = n_local, n_params, device
+        self.sample_z = sample_z or (
+            lambda k, n: jax.random.normal(k, (n, nz)))
 
     def __call__(self, t):
         """Round t of a JAX Trainer keyed by `key` (fold_in(key, t))."""
@@ -54,8 +59,8 @@ class JaxDraws:
         salted_x = jax.random.fold_in(round_key, jprotocol._SALT_DATA)
 
         def z(j, n):
-            return np.asarray(jax.random.normal(
-                jax.random.fold_in(salted_z, j), (n, self.nz)))
+            return np.asarray(self.sample_z(jax.random.fold_in(salted_z, j),
+                                            n))
 
         z_dev = np.stack([z(j, p.sample_size) for j in range(p.n_d)])
         z_srv = np.stack([z(j, p.server_sample_size) for j in range(p.n_g)])
