@@ -7,8 +7,9 @@ Phases, in order; any failure exits non-zero:
   1. device   the card's name and power limit (nvidia-smi); TF32 off for
               matmuls and cuDNN convolutions, so float32 means float32
   2. build    every kernel of the main paths (wavg, trimmed_wavg,
-              ssd_scan), compiled with nvcc from src/repro_torch/csrc/,
-              one nvcc per source, all started together
+              ssd_scan, flash_attn), compiled with nvcc from
+              src/repro_torch/csrc/, one nvcc per source, all started
+              together
   3. kernels  each kernel against its plain PyTorch version at the main
               paths' shapes and at edge shapes; timed with CUDA events
               beside its bound and, where one exists, a PyTorch library
@@ -17,8 +18,9 @@ Phases, in order; any failure exits non-zero:
               versions) from the same draws: one plain protocol round,
               one protocol round and one FedGAN round under a fault
               program with the trimmed mean, one backbone-GAN round on
-              the reduced mamba2-130m
-  5. train    three main paths, through `Trainer.run`, each with the
+              the reduced mamba2-130m and one on the reduced granite-3-2b
+              with 2 kv heads at seq_len 520 (the flash branch)
+  5. train    four main paths, through `Trainer.run`, each with the
               launch counts set to 0 just before it and read just after;
               the first two on the full-width DCGAN (K=10, 64x64):
               a. the protocol: 3 serial rounds and 3 parallel rounds with
@@ -36,9 +38,15 @@ Phases, in order; any failure exits non-zero:
                  parallel round with best-channel scheduling at ratio
                  0.5; 528 ssd_scan launches and one wavg launch per
                  round, finite values, one token FID
-  6. profile  one more round of the DCGAN protocol and of the backbone-
-              GAN under torch.profiler: device-busy share and the
-              kernels that take the most device time
+              d. the same protocol on granite-3-2b at full width, its 40
+                 layers cut to 4 (K=4, m=4, seq_len 1024): 88 flash_attn
+                 launches and one wavg launch per round, finite values,
+                 one token FID, the peak device memory
+  6. profile  one more round of the DCGAN protocol and of the mamba2-130m
+              backbone-GAN (after 5c; that trainer is then freed) and of
+              the granite-3-2b backbone-GAN (after 5d) under
+              torch.profiler: device-busy share and the kernels that
+              take the most device time
 The last two lines are the `kernels` JSON line and
 {"ok": true, "device": {...}}.
 """
@@ -63,8 +71,10 @@ F32_FLOPS_PER_S = 67e12
 
 RTOL, ATOL = 1e-5, 1e-6        # f32 sums of K terms in another order
 K_MAIN, N_MAIN = 10, 2_765_568  # Algorithm 2 on the DCGAN discriminator
-# Algorithm 2 on the full-width mamba2-130m discriminator, K = 4 devices
+# Algorithm 2 on the full-width mamba2-130m discriminator and on the
+# 4-layer granite-3-2b one, K = 4 devices
 K_BACKBONE, N_BACKBONE = 4, 129_574_080
+N_GRANITE = 348_153_856
 N_FEDGAN = 6_342_272            # FedGAN's payload: discriminator + generator
 EDGE_N = (1, 3, 2048, 2049)
 EDGE_K = (1, 7, 64)
@@ -74,11 +84,30 @@ TRIM_EDGE = (0, 1, 3)
 # b = m = 8 sequences of 512 tokens, 24 heads of 64, one group of 128.
 SSD_MAIN = dict(b=8, s=512, h=24, p=64, g=1, n=128, chunk=128)
 SSD_ATOL, SSD_ATOL_BF16 = 1e-4, 0.05   # as tests/test_kernels.py
-# One backbone round: n_d (L + 2 K L) + n_g 2 L scans, L = 24 layers.
-BACKBONE = dict(k=4, n_d=2, n_g=2, m=8, seq=512, layers=24)
-SSD_PER_ROUND = (BACKBONE["n_d"] * (BACKBONE["layers"] + 2 * BACKBONE["k"]
-                                    * BACKBONE["layers"])
-                 + BACKBONE["n_g"] * 2 * BACKBONE["layers"])
+# Causal GQA attention of the full-width granite-3-2b backbone-GAN: b = m
+# = 4 sequences of 1024 tokens, 32 heads of 64 over 8 kv heads; and
+# qwen3-1.7b's heads (16 of 128 over 8).
+FLASH_MAIN = dict(b=4, s=1024, h=32, kv=8, d=64)
+FLASH_QWEN3 = dict(b=4, s=1024, h=16, kv=8, d=128)
+FLASH_ATOL, FLASH_ATOL_BF16 = 2e-5, 0.05   # as tests/test_kernels.py
+# The backbone-GAN paths: full width, K = 4 devices, 4,096 tokens a
+# batch; granite-3-2b's 40 layers cut to 4, so that K discriminators with
+# Adam fit one card. sizes: (G, D) parameters; per_round: the launches
+# of the path's kernel in a round.
+MAMBA = dict(arch="mamba2-130m", k=4, n_d=2, n_g=2, m=8, seq=512,
+             layers=24, sizes=(168_286_656, 129_574_080), per_round=528)
+GRANITE = dict(arch="granite-3-2b", k=4, n_d=2, n_g=2, m=4, seq=1024,
+               layers=4, sizes=(449_083_392, 348_153_856), per_round=88)
+
+
+def launches_per_round(bb):
+    """One kernel launch per sublayer forward: n_d (L + 2 K L) + n_g 2 L
+    (the generator once and K discriminators on real and fake per local
+    step; generator and discriminator per server step)."""
+    return (bb["n_d"] * (bb["layers"] + 2 * bb["k"] * bb["layers"])
+            + bb["n_g"] * 2 * bb["layers"])
+
+
 # The hostile-worker population of the full-width run.
 HOSTILE = dict(n_devices=10, dropout_prob=0.1, n_free_riders=2,
                n_byzantine=2, byz_scale=10.0, straggler_factor=2.0, seed=0)
@@ -118,7 +147,8 @@ def check_wavg(torch, ops):
         w = torch.rand(k, generator=gen, device="cuda")
         return x, w / w.sum()
 
-    mains = [(K_MAIN, N_MAIN), (K_BACKBONE, N_BACKBONE)]
+    mains = [(K_MAIN, N_MAIN), (K_BACKBONE, N_BACKBONE),
+             (K_BACKBONE, N_GRANITE)]
     shapes = mains + [(k, n) for k in EDGE_K for n in EDGE_N]
     max_err = {}
     for k, n in shapes:
@@ -159,7 +189,9 @@ def check_wavg(torch, ops):
             "replaces": "src/repro/kernels/wavg/kernel.py:31",
             "launches": None, **timed[(K_MAIN, N_MAIN)],
             "backbone_shape": {"k": K_BACKBONE, "n": N_BACKBONE,
-                               **timed[(K_BACKBONE, N_BACKBONE)]}}
+                               **timed[(K_BACKBONE, N_BACKBONE)]},
+            "granite_shape": {"k": K_BACKBONE, "n": N_GRANITE,
+                              **timed[(K_BACKBONE, N_GRANITE)]}}
 
 
 def check_trimmed(torch, ops):
@@ -360,20 +392,113 @@ def check_ssd(torch, ops, ref, ssm):
             "library_ms": None, "chunked_torch_ms": torch_ms}
 
 
-def check_backbone_round_against_cpu(torch, ssd_ops):
-    """One backbone-GAN round (SGD, reduced mamba2-130m, seq_len 40: the
-    last chunk of 16 is padded) on the card and on the CPU from the same
-    weights and draws. The card's round (ssd_scan kernel forward, wavg)
-    must agree with the CPU's (plain scans) to float32 round-off, or to
-    one quantization step where a stochastic rounding flips."""
-    from repro_torch.configs import ProtocolConfig, get_arch_config
+def flash_inputs(torch, gen, b, s, h, kv, d, *, dtype=None, strided=False):
+    """q (b, s, h, d), k, v (b, s, kv, d) standard normal on the card, as
+    tests/test_kernels.py::TestFlashAttn draws them. strided=True slices
+    them out of one (b, s, h + 2 kv, d) tensor."""
+    f = functools.partial(torch.randn, generator=gen, device="cuda")
+    if strided:
+        qkv = f((b, s, h + 2 * kv, d))
+        q, k, v = qkv[:, :, :h], qkv[:, :, h:h + kv], qkv[:, :, h + kv:]
+    else:
+        q, k, v = f((b, s, h, d)), f((b, s, kv, d)), f((b, s, kv, d))
+    if dtype is not None:
+        q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    return q, k, v
+
+
+def check_flash(torch, ops, ref):
+    """The flash_attn kernel, out and lse, against its plain version (the
+    port's blockwise flash_ref) at the main path's shape and at edge
+    shapes; timings of the kernel, the plain version and PyTorch's
+    scaled_dot_product_attention (never called by the port) at the main
+    shape. Returns the kernel's JSON entry (launches unset)."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    small = dict(b=2, h=4, kv=2, d=64)
+    cases = [(FLASH_MAIN, {}), (dict(FLASH_MAIN, b=1), dict(strided=True))]
+    cases += [(dict(small, s=s), {}) for s in (1, 63, 64, 65, 520)]
+    cases += [(dict(small, s=200, d=d), {}) for d in (32, 64, 128)]
+    cases += [(dict(small, s=130, h=h, kv=kv), {})
+              for h, kv in ((4, 4), (8, 2))]
+    cases += [(dict(small, s=300), dict(window=w)) for w in (9, 100)]
+    cases += [(dict(small, s=200), dict(causal=False)),
+              (dict(small, s=200), dict(causal=False, window=50))]
+    cases += [(dict(small, s=200), dict(dtype=torch.bfloat16)),
+              (dict(small, s=200, d=128), dict(dtype=torch.bfloat16,
+                                                window=9)),
+              (dict(FLASH_MAIN, b=1), dict(dtype=torch.bfloat16)),
+              (FLASH_QWEN3, {})]
+    max_err = {}
+    for i, (shape, kw) in enumerate(cases):
+        kw = dict(kw)
+        causal, window = kw.pop("causal", True), kw.pop("window", None)
+        q, k, v = flash_inputs(torch, gen, **shape, **kw)
+        out, lse = ops._kernel_forward(q, k, v, causal, window)
+        torch.cuda.synchronize()
+        out_plain, lse_plain = ref.flash_attention_plain(
+            q, k, v, causal=causal, window=window)
+        atol = FLASH_ATOL if q.dtype == torch.float32 else FLASH_ATOL_BF16
+        for got, want in ((out, out_plain), (lse, lse_plain)):
+            if got.dtype != torch.float32 or got.shape != want.shape:
+                raise AssertionError(f"flash_attn gave {got.dtype} "
+                                     f"{tuple(got.shape)}")
+            torch.testing.assert_close(got, want, rtol=0, atol=atol)
+        max_err[i] = max(float((out - out_plain).abs().max()),
+                         float((lse - lse_plain).abs().max()))
+        del q, k, v, out, lse, out_plain, lse_plain
+    print(f"flash_attn matches its plain version at {len(cases)} shapes, out "
+          f"and lse (atol {FLASH_ATOL} f32, {FLASH_ATOL_BF16} bf16); max abs "
+          f"err {max(max_err.values()):.3e}, at the main shape "
+          f"{max_err[0]:.3e}")
+
+    b, s, h, kv, d = (FLASH_MAIN[key] for key in "b s h kv d".split())
+    # three input sets of ~50 MB each, together past L2
+    sets = [flash_inputs(torch, gen, **FLASH_MAIN) for _ in range(3)]
+    kernel_ms = time_ms(lambda q, k, v: ops._kernel_forward(q, k, v, True,
+                                                            None), sets)
+    plain_ms = time_ms(lambda q, k, v: ref.flash_attention_plain(q, k, v),
+                       sets, reps=5, per_rep=3, warmup=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    heads_first = [tuple(t.transpose(1, 2).contiguous() for t in qkv)
+                   for qkv in sets]
+    library_ms = time_ms(lambda q, k, v: sdpa(q, k, v, is_causal=True,
+                                              enable_gqa=True), heads_first)
+    # bytes: q, k, v, out and lse once each; operations: the causal
+    # triangle of q.k and of p.v, 2 D flops each per (row, key) pair
+    n_bytes = 4 * (2 * b * s * h * d + 2 * b * s * kv * d + b * h * s)
+    flops = 4 * b * h * d * s * (s + 1) // 2
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    flops_ms = flops / F32_FLOPS_PER_S * 1e3
+    print(f"flash_attn b={b} s={s} H={h} KV={kv} D={d} causal f32: kernel "
+          f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+          f"{library_ms:.4f} ms; bound {max(bytes_ms, flops_ms):.4f} ms "
+          f"({n_bytes} B = {bytes_ms:.4f} ms, {flops} flop = "
+          f"{flops_ms:.4f} ms); {flops / kernel_ms / 1e9:.3f} TFLOP/s, "
+          f"{max(bytes_ms, flops_ms) / kernel_ms:.3f} of the bound")
+    return {"name": "flash_attn", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attn.cu",
+            "replaces": "src/repro/kernels/flash_attn/kernel.py:83",
+            "launches": None, "max_abs_err": max_err[0],
+            "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, flops_ms),
+            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+            "library_ms": library_ms}
+
+
+def check_backbone_round_against_cpu(torch, kernel_ops, kernel, cfg, seq):
+    """One backbone-GAN round (SGD, K=3) of a reduced config on the card
+    and on the CPU from the same weights and draws. The card's round
+    (the sublayers' kernel forward, wavg) must agree with the CPU's
+    (plain versions) to float32 round-off, or to one quantization step
+    where a stochastic rounding flips; the kernel launches once per
+    sublayer forward."""
+    from repro_torch.configs import ProtocolConfig
     from repro_torch.core import protocol
     from repro_torch.models import gan
     from repro_torch.models.specs import make_backbone_spec
     from repro_torch.tree import tree_leaves
 
-    cfg = get_arch_config("mamba2-130m").reduced()
-    k, seq = 3, 40
+    k = 3
     spec = make_backbone_spec(cfg, seq, remat=False,
                               gen_loss_variant="nonsaturating")
     pcfg = ProtocolConfig(n_devices=k, n_d=2, n_g=2, sample_size=4,
@@ -392,11 +517,11 @@ def check_backbone_round_against_cpu(torch, ssd_ops):
         moved = protocol.RoundDraws(
             *(None if t is None else t.to(dev) for t in
               (draws.z_dev, draws.z_srv, draws.idx, draws.quant_u)))
-        before = ssd_ops.launches
+        before = kernel_ops.launches
         out[dev] = protocol.gan_round(spec, pcfg, state, data.to(dev),
                                       weights.to(dev), moved)
     torch.cuda.synchronize()
-    launched = ssd_ops.launches - before
+    launched = kernel_ops.launches - before
     (s_cpu, m_cpu), (s_gpu, m_gpu) = out["cpu"], out["cuda"]
     for a, b in zip(tree_leaves(s_cpu["disc"]), tree_leaves(s_gpu["disc"])):
         step = float(a.abs().max()) / 32767
@@ -409,11 +534,11 @@ def check_backbone_round_against_cpu(torch, ssd_ops):
     layers = cfg.n_layers
     want = pcfg.n_d * (layers + 2 * k * layers) + pcfg.n_g * 2 * layers
     if launched != want:
-        raise AssertionError(f"{launched} ssd_scan launches in the small "
+        raise AssertionError(f"{launched} {kernel} launches in the small "
                              f"round, expected {want}")
-    print(f"small backbone-GAN round on the card ({launched} ssd_scan "
-          f"launches) matches the CPU round (D objective "
-          f"{float(m_gpu['disc_objective']):+.6f})")
+    print(f"small backbone-GAN round on the card ({cfg.name} reduced, "
+          f"seq_len {seq}: {launched} {kernel} launches) matches the CPU "
+          f"round (D objective {float(m_gpu['disc_objective']):+.6f})")
 
 
 def check_round_against_cpu(torch):
@@ -696,12 +821,14 @@ def train(torch, ops, robust_ops):
     return launches, trainer, (spec, cfg, shards)
 
 
-def train_backbone(torch, wavg_ops, ssd_ops):
-    """The backbone-GAN path: Trainer.run on the full-width mamba2-130m
-    (K=4, n_d=n_g=2, m=M=8, seq_len 512, Adam at 1e-3, 16-bit uplink)
-    over token data, 2 serial rounds with every device scheduled, then 1
-    parallel round with best-channel scheduling at ratio 0.5. Returns the
-    path's launch counts and its last trainer."""
+def train_backbone(torch, wavg_ops, kernel_ops, kernel, bb):
+    """A backbone-GAN path: Trainer.run on the full-width `bb["arch"]`
+    (depth cut to bb["layers"] where that is less) with K=4, n_d=n_g=2,
+    m=M=bb["m"], seq_len bb["seq"], Adam at 1e-3, 16-bit uplink, over
+    token data: 2 serial rounds with every device scheduled, then 1
+    parallel round with best-channel scheduling at ratio 0.5. Each round
+    launches wavg once and `kernel` once per sublayer forward. Returns
+    the path's launch counts and its last trainer."""
     import resource
     import numpy as np
     from repro_torch.configs import ProtocolConfig, get_arch_config
@@ -712,14 +839,20 @@ def train_backbone(torch, wavg_ops, ssd_ops):
     from repro_torch.models.specs import make_backbone_spec
     from repro_torch.tree import tree_leaves
 
-    cfg = get_arch_config("mamba2-130m")
-    bb = BACKBONE
+    cfg = get_arch_config(bb["arch"])
+    if bb["layers"] < cfg.n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=bb["layers"])
+    per_round = bb["per_round"]
+    if launches_per_round(bb) != per_round:
+        raise AssertionError(f"{cfg.name}: {launches_per_round(bb)} "
+                             f"sublayer forwards a round, not {per_round}")
     spec = make_backbone_spec(cfg, bb["seq"], remat=False,
                               gen_loss_variant="nonsaturating")
     t0 = time.perf_counter()
     toks, _ = make_token_dataset(bb["k"] * 32, bb["seq"], cfg.vocab)
-    print(f"token data ({bb['k'] * 32} x {bb['seq']}, vocab {cfg.vocab}): "
-          f"{time.perf_counter() - t0:.2f} s on the host, peak RSS "
+    print(f"{cfg.name} token data ({bb['k'] * 32} x {bb['seq']}, vocab "
+          f"{cfg.vocab}): {time.perf_counter() - t0:.2f} s on the host, "
+          f"peak RSS "
           f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.2f}"
           f" GiB")
     shards = partition(toks, bb["k"])
@@ -728,7 +861,8 @@ def train_backbone(torch, wavg_ops, ssd_ops):
             (1, dict(schedule="parallel", scheduler="best_channel",
                      scheduling_ratio=0.5))]
 
-    wavg_ops.launches = ssd_ops.launches = 0   # the path starts here
+    torch.cuda.reset_peak_memory_stats()
+    wavg_ops.launches = kernel_ops.launches = 0   # the path starts here
     trainer = None
     for n_rounds, run in runs:
         pcfg = ProtocolConfig(n_devices=bb["k"], n_d=bb["n_d"],
@@ -740,45 +874,47 @@ def train_backbone(torch, wavg_ops, ssd_ops):
                           shards, seed=0)
         n_gen = protocol.count_params(trainer.state["gen"])
         n_disc = protocol.count_params(trainer.state["disc"])
-        if (n_gen, n_disc) != (168_286_656, 129_574_080):
-            raise AssertionError(f"mamba2-130m sizes {n_gen}, {n_disc}")
+        if (n_gen, n_disc) != bb["sizes"]:
+            raise AssertionError(f"{cfg.name} sizes {n_gen}, {n_disc}")
         if trainer.data.dtype != torch.int64:
             raise AssertionError(f"token shards as {trainer.data.dtype}")
         for _ in range(n_rounds):
-            before = (wavg_ops.launches, ssd_ops.launches)
+            before = (wavg_ops.launches, kernel_ops.launches)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             rec = trainer.run(1)[-1]
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
             got = (wavg_ops.launches - before[0],
-                   ssd_ops.launches - before[1])
-            if got != (1, SSD_PER_ROUND):
-                raise AssertionError(f"backbone round {rec.round}: (wavg, "
-                                     f"ssd_scan) launches {got}, expected "
-                                     f"(1, {SSD_PER_ROUND})")
+                   kernel_ops.launches - before[1])
+            if got != (1, per_round):
+                raise AssertionError(f"{cfg.name} round {rec.round}: (wavg, "
+                                     f"{kernel}) launches {got}, expected "
+                                     f"(1, {per_round})")
             if not all(np.isfinite(v) for v in rec.metrics.values()):
                 raise AssertionError(f"non-finite objectives {rec.metrics}")
-            print(f"backbone {run['schedule']:8s} round {rec.round}: "
+            print(f"{cfg.name} {run['schedule']:8s} round {rec.round}: "
                   f"D {rec.metrics['disc_objective']:+.5f}  "
                   f"G {rec.metrics['gen_objective']:+.5f}  "
                   f"weights {rec.weights.tolist()}  {secs:.3f} s")
         if not all(bool(torch.isfinite(x).all())
                    for x in tree_leaves(trainer.state)
                    if x.is_floating_point()):
-            raise AssertionError("non-finite backbone-GAN parameters")
+            raise AssertionError(f"non-finite {cfg.name} parameters")
         if run["scheduler"] == "best_channel" and not all(
                 (r.weights == 0).sum() == 2 for r in trainer.history):
             raise AssertionError("best_channel at 0.5 must drop 2 of 4")
     launches = {"wavg": wavg_ops.launches,     # ... and ends here
-                "ssd_scan": ssd_ops.launches}
+                kernel: kernel_ops.launches}
     n_total = sum(r[0] for r in runs)
-    if launches != {"wavg": n_total, "ssd_scan": n_total * SSD_PER_ROUND}:
-        raise AssertionError(f"backbone path launches {launches} over "
+    if launches != {"wavg": n_total, kernel: n_total * per_round}:
+        raise AssertionError(f"{cfg.name} path launches {launches} over "
                              f"{n_total} rounds")
-    print(f"backbone path: {n_gen} G / {n_disc} D parameters; "
-          f"{launches['wavg']} wavg and {launches['ssd_scan']} ssd_scan "
-          f"launches over {n_total} rounds")
+    print(f"{cfg.name} path ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"K={bb['k']}, seq_len {bb['seq']}): {n_gen} G / {n_disc} D "
+          f"parameters; {launches['wavg']} wavg and {launches[kernel]} "
+          f"{kernel} launches over {n_total} rounds; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     feat = make_token_feature_extractor(cfg.vocab)
     real = feat(torch.as_tensor(toks[:128], device="cuda"))
@@ -788,7 +924,7 @@ def train_backbone(torch, wavg_ops, ssd_ops):
     fid = fid_score(real, feat(fake))
     if not np.isfinite(fid):
         raise AssertionError(f"token FID {fid}")
-    print(f"token FID after the last backbone round: {fid:.4f}")
+    print(f"token FID after the last {cfg.name} round: {fid:.4f}")
     return launches, trainer
 
 
@@ -842,6 +978,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    from repro_torch.configs import get_arch_config
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+    from repro_torch.kernels.flash_attn import ref as flash_ref
     from repro_torch.kernels.robust_avg import ops as robust_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan import ref as ssd_ref
@@ -862,9 +1001,10 @@ def main() -> int:
 
     # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor() as pool:
-        list(pool.map(lambda m: m.build(), (ops, robust_ops, ssd_ops)))
-    print(f"built wavg, trimmed_wavg and ssd_scan in "
+    kernel_mods = (ops, robust_ops, ssd_ops, flash_ops)
+    with concurrent.futures.ThreadPoolExecutor(len(kernel_mods)) as pool:
+        list(pool.map(lambda m: m.build(), kernel_mods))
+    print(f"built wavg, trimmed_wavg, ssd_scan and flash_attn in "
           f"{time.perf_counter() - t0:.2f} s")
     stamp("build")
 
@@ -872,43 +1012,66 @@ def main() -> int:
     wavg = check_wavg(torch, ops)
     trimmed = check_trimmed(torch, robust_ops)
     ssd = check_ssd(torch, ssd_ops, ssd_ref, ssm)
+    flash = check_flash(torch, flash_ops, flash_ref)
     stamp("kernels")
 
     # 4. small rounds, card vs CPU
     check_round_against_cpu(torch)
     check_faulted_rounds_against_cpu(torch)
-    check_backbone_round_against_cpu(torch, ssd_ops)
+    check_backbone_round_against_cpu(
+        torch, ssd_ops, "ssd_scan", get_arch_config("mamba2-130m").reduced(),
+        40)   # the last chunk of 16 padded
+    check_backbone_round_against_cpu(
+        torch, flash_ops, "flash_attn", dataclasses.replace(
+            get_arch_config("granite-3-2b").reduced(), n_kv_heads=2),
+        520)  # s * s past the flash threshold, 4 query heads a kv head
     stamp("check")
 
     # 5. train: the protocol's path, the hostile-worker path, then the
-    # backbone-GAN path
+    # two backbone-GAN paths; 6. one profiled round after each model's
+    # paths (the mamba2-130m trainer is freed before granite-3-2b's)
+    flash_ops.launches = 0
     protocol_launches, trainer, setup = train(torch, ops, robust_ops)
     hostile = train_hostile(torch, ops, robust_ops, *setup)
     del setup
     stamp("train: DCGAN protocol and hostile paths")
-    backbone, backbone_trainer = train_backbone(torch, ops, ssd_ops)
-    stamp("train: backbone path")
-    if robust_ops.launches != hostile["trimmed_wavg"]:
-        raise AssertionError("trimmed_wavg launched on the backbone path")
-    wavg["launches"] = protocol_launches + hostile["wavg"] + backbone["wavg"]
-    wavg["launches_by_path"] = {"protocol": protocol_launches,
-                                "hostile": hostile["wavg"],
-                                "backbone": backbone["wavg"]}
-    trimmed["launches"] = hostile["trimmed_wavg"]
-    trimmed["launches_by_path"] = {"protocol": 0,
-                                   "hostile": hostile["trimmed_wavg"],
-                                   "backbone": 0}
-    ssd["launches"] = backbone["ssd_scan"]
-    ssd["launches_by_path"] = {"protocol": 0, "hostile": 0,
-                               "backbone": backbone["ssd_scan"]}
-
-    # 6. where a round's time goes
+    mamba, backbone_trainer = train_backbone(torch, ops, ssd_ops,
+                                             "ssd_scan", MAMBA)
+    stamp("train: mamba2-130m backbone path")
     profile_round(torch, trainer, "DCGAN protocol")
     del trainer
-    profile_round(torch, backbone_trainer, "backbone-GAN", host_ops=False)
-    stamp("profile")
+    profile_round(torch, backbone_trainer, "mamba2-130m backbone-GAN",
+                  host_ops=False)
+    del backbone_trainer
+    torch.cuda.empty_cache()
+    stamp("profile: DCGAN and mamba2-130m")
+    if flash_ops.launches != 0:
+        raise AssertionError("flash_attn launched on the DCGAN or mamba2 "
+                             "paths")
+    ssd_before = ssd_ops.launches
+    granite, backbone_trainer = train_backbone(torch, ops, flash_ops,
+                                               "flash_attn", GRANITE)
+    stamp("train: granite-3-2b backbone path")
+    if robust_ops.launches != hostile["trimmed_wavg"]:
+        raise AssertionError("trimmed_wavg launched on a backbone path")
+    if ssd_ops.launches != ssd_before:
+        raise AssertionError("ssd_scan launched on the granite-3-2b path")
+    by_path = {"wavg": {"protocol": protocol_launches,
+                        "hostile": hostile["wavg"], "mamba2": mamba["wavg"],
+                        "granite": granite["wavg"]},
+               "trimmed_wavg": {"hostile": hostile["trimmed_wavg"]},
+               "ssd_scan": {"mamba2": mamba["ssd_scan"]},
+               "flash_attn": {"granite": granite["flash_attn"]}}
+    for entry in (wavg, trimmed, ssd, flash):
+        paths = {"protocol": 0, "hostile": 0, "mamba2": 0, "granite": 0,
+                 **by_path[entry["name"]]}
+        entry["launches"] = sum(paths.values())
+        entry["launches_by_path"] = paths
+    profile_round(torch, backbone_trainer, "granite-3-2b backbone-GAN",
+                  host_ops=False)
+    stamp("profile: granite-3-2b")
 
-    print(json.dumps({"kernels": [wavg, trimmed, ssd]}))
+    print(json.dumps({"kernels": [wavg, trimmed, ssd, flash]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -9,9 +9,11 @@ from repro_torch.configs.base import (ArchConfig, MoEConfig, ProtocolConfig,
 from repro_torch.configs.dcgan import DCGANConfig
 
 # Canonical (dashed) ids of the ported architectures, mapped to modules.
-# The JAX package registers nine more (attention, MoE, hybrid, encoder-
-# decoder and vision families); they wait for ROADMAP A13.
-CANONICAL = {"mamba2-130m": "mamba2_130m"}
+# The JAX package registers seven more (gemma3, minitron and the MoE,
+# hybrid, encoder-decoder and vision families); they wait for ROADMAP A13.
+CANONICAL = {"mamba2-130m": "mamba2_130m",
+             "granite-3-2b": "granite_3_2b",
+             "qwen3-1.7b": "qwen3_1_7b"}
 
 
 def get_arch_config(name: str):

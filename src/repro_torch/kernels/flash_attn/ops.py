@@ -1,0 +1,160 @@
+"""Wrapper of the hand-written Hopper flash_attn kernel: causal (or
+sliding-window, or bidirectional) grouped-query attention forward with
+an online softmax, the counterpart of `repro.kernels.flash_attn.ops.
+flash_attention` and of the JAX attention's flash branch.
+
+A CUDA tensor launches the kernel in `repro_torch/csrc/flash_attn.cu` or
+raises; a CPU tensor takes the plain version (`ref.
+flash_attention_plain`), and only because it lies on the CPU.
+`launches` counts kernel launches, so a run can show that its attention
+went through the kernel.
+
+The gradient: the JAX package has no backward kernel (its `custom_vjp`
+runs the blockwise FlashAttention-2 backward of `repro.nn.flash_ref` on
+the forward's residuals). `FlashAttention`, a `torch.autograd.Function`,
+runs the forward (the kernel, or the plain version passed in by a test),
+saves q, k, v, out and the row log-sum-exp, and runs the port of that
+backward (`nn.flash_ref.flash_backward`) on them: the forward kernel is
+not launched again.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels._build import load_library
+from repro_torch.kernels.flash_attn.ref import (flash_attention_plain,
+                                                fold_queries,
+                                                folded_positions,
+                                                unfold_queries)
+from repro_torch.nn.flash_ref import flash_backward
+
+# Kernel launches since import (or since a caller reset it to 0).
+launches = 0
+
+# head_dim values the kernel is instantiated for
+HEAD_DIMS = (32, 64, 128)
+
+# The C entry point's parameters: q, k, v, out, lse, stream; b, s, H, KV,
+# D, causal, window (0: none), bf16; the strides of q, k and v over
+# (batch, sequence, head).
+ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 9
+
+
+@functools.cache
+def _kernel():
+    fn = load_library("flash_attn", ("flash_attn.cu",)).flash_attn
+    fn.argtypes = ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def build():
+    """Compile (if needed) and load the kernel library."""
+    _kernel()
+
+
+def _check(q, k, v, window):
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError("flash_attention takes q (b, s, H, D) and k, v "
+                         "(b, s, KV, D)")
+    b, s, h, d = q.shape
+    kv = k.shape[2]
+    if (k.shape[0], k.shape[1], k.shape[3]) != (b, s, d) or h % kv:
+        raise ValueError(f"shapes do not agree: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    if q.dtype not in (torch.float32, torch.bfloat16) or not (
+            q.dtype == k.dtype == v.dtype):
+        raise ValueError(f"flash_attention takes float32 or bfloat16 q, k "
+                         f"and v of one dtype, not {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
+    if len({q.device, k.device, v.device}) != 1:
+        raise ValueError("q, k and v on several devices")
+    if min(b, s, h, d) < 1:
+        raise ValueError("empty input")
+    if window is not None and window < 1:
+        raise ValueError(f"window {window} < 1 leaves queries no key")
+    return b, s, h, kv, d
+
+
+def _kernel_forward(q, k, v, causal, window):
+    """Launch the kernel: out (b, s, H, D) float32, contiguous, and lse
+    (b, H, s) float32."""
+    global launches
+    b, s, h, kv, d = _check(q, k, v, window)
+    if q.device.type != "cuda":
+        raise ValueError(f"the flash_attn kernel runs on CUDA tensors, not "
+                         f"{q.device}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the flash_attn kernel takes head_dim in "
+                         f"{HEAD_DIMS}, not {d}")
+    # read through strides, with unit stride in the last dimension
+    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    out = torch.empty((b, s, h, d), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _kernel()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), stream, b, s, h, kv, d, int(causal),
+            0 if window is None else window, int(q.dtype == torch.bfloat16),
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    if err != 0:
+        raise RuntimeError(f"flash_attn kernel launch failed with CUDA "
+                           f"error {err}")
+    launches += 1
+    return out, lse
+
+
+def _plain_forward(q, k, v, causal, window):
+    _check(q, k, v, window)
+    return flash_attention_plain(q, k, v, causal=causal, window=window)
+
+
+class FlashAttention(torch.autograd.Function):
+    """forward(fwd, q, k, v, causal, window): `fwd` computes (out, lse);
+    the backward runs `nn.flash_ref.flash_backward` on the saved q, k,
+    v, out and lse, with the group folded into the query axis and k, v
+    not repeated."""
+
+    @staticmethod
+    def forward(ctx, fwd, q, k, v, causal, window):
+        out, lse = fwd(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        b, s, h, d = q.shape
+        kv = k.shape[2]
+        q_pos, k_pos = folded_positions(s, h // kv, q.device)
+        dq, dk, dv = flash_backward(
+            fold_queries(q, kv), k.transpose(1, 2), v.transpose(1, 2),
+            q_pos, k_pos, d ** -0.5, fold_queries(out, kv),
+            lse.reshape(b, kv, -1), fold_queries(dout, kv), ctx.causal,
+            ctx.window)
+        return (None, unfold_queries(dq, s), dk.transpose(1, 2),
+                dv.transpose(1, 2), None, None)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window=None):
+    """Attention of q (b, s, H, D) over k, v (b, s, KV, D), query and key
+    i at position i, scale D ** -0.5; key j is seen by query i when
+    j <= i (causal) and j > i - window (window set). Returns
+    (b, s, H, D) float32."""
+    if q.device.type == "cpu":
+        fwd = _plain_forward
+    elif q.device.type == "cuda":
+        fwd = _kernel_forward
+    else:
+        raise ValueError(f"flash_attention runs on CUDA or CPU tensors, not "
+                         f"{q.device}")
+    return FlashAttention.apply(fwd, q, k, v, causal, window)
+
+
+__all__ = ["flash_attention", "FlashAttention", "flash_attention_plain",
+           "build"]

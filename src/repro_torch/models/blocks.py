@@ -1,9 +1,10 @@
 """Sublayer blocks composed by the grouped backbone (port of
-`repro.models.blocks` for the `ssm` family).
+`repro.models.blocks` for the `dense` and `ssm` families, training
+path).
 
-Each block is (init, apply) over a full residual sublayer. The
-attention, cross-attention and LayerNorm (whisper) variants wait for the
-attention families (ROADMAP A13).
+Each block is (init, apply) over a full residual sublayer. The MoE
+feed-forward, cross-attention and LayerNorm (whisper) variants wait for
+their families (ROADMAP A13).
 """
 from __future__ import annotations
 
@@ -26,6 +27,47 @@ def _norm_apply(cfg: ArchConfig, params, x):
         raise NotImplementedError("LayerNorm backbones (whisper) are not "
                                   "ported (ROADMAP A13)")
     return rmsnorm_apply(params, x, eps=cfg.norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# Self-attention + dense feed-forward layer
+# ---------------------------------------------------------------------------
+
+def _refuse_moe(cfg: ArchConfig):
+    if cfg.moe is not None:
+        raise NotImplementedError(f"{cfg.name}: the MoE feed-forward is not "
+                                  f"ported (ROADMAP A13)")
+
+
+def attn_layer_init(generator: torch.Generator, cfg: ArchConfig):
+    _refuse_moe(cfg)
+    device = generator.device
+    return {
+        "ln_attn": _norm_init(cfg, cfg.d_model, device=device),
+        "attn": nn.attention_init(
+            generator, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.resolved_head_dim, qk_norm=cfg.qk_norm,
+            use_bias=cfg.use_attn_bias, fuse_qkv=cfg.fuse_proj),
+        "ln_ff": _norm_init(cfg, cfg.d_model, device=device),
+        "ff": nn.mlp_init(generator, cfg.d_model, cfg.d_ff,
+                          gated=not cfg.use_attn_bias,
+                          use_bias=cfg.use_attn_bias,
+                          fuse_gate=cfg.fuse_proj),
+    }
+
+
+def attn_layer_apply(params, cfg: ArchConfig, h, *, window, inv_freq):
+    """Returns (h, aux): the causal self-attention sublayer, then the
+    dense feed-forward, each residual, on the training path."""
+    _refuse_moe(cfg)
+    x = _norm_apply(cfg, params["ln_attn"], h)
+    h = h + nn.attention_apply(
+        params["attn"], x, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        inv_freq=inv_freq, window=window, qk_norm=cfg.qk_norm,
+        flash_repeat_kv=cfg.flash_repeat_kv)
+    x = _norm_apply(cfg, params["ln_ff"], h)
+    h = h + nn.mlp_apply(params["ff"], x)
+    return h, torch.zeros((), dtype=torch.float32, device=h.device)
 
 
 # ---------------------------------------------------------------------------

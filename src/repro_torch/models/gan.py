@@ -1,4 +1,5 @@
-"""The backbone-GAN (port of `repro.models.gan` for the `ssm` family):
+"""The backbone-GAN (port of `repro.models.gan` for the `dense` and
+`ssm` families):
 
   Generator      noise z (b, s, d_z) --z_proj--> backbone --out_proj-->
                  synthetic embedding sequence (b, s, d_model). It also

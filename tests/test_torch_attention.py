@@ -1,0 +1,315 @@
+"""Port parity: RoPE, the SwiGLU/GELU feed-forward, the blockwise flash
+attention (forward and FlashAttention-2 backward), the flash_attn
+kernel's plain version and the attention layer against the JAX package.
+
+The same inputs, drawn with numpy, go through `repro.nn` /
+`repro.kernels.flash_attn` and their ports; the JAX Pallas kernel runs
+in interpret mode, as the JAX package's own tests run it on the CPU. The
+port's kernel wrapper takes its plain version on a CPU tensor.
+
+Tolerances: 1e-6 (relative and absolute) for RoPE and the feed-forward
+(the same float32 products, summed in another order); 1e-5 for the
+flash forward, lse and gradients (float32 online softmax over blocks);
+2e-5 in float32 and 0.05 in bfloat16 against the Pallas kernel, as
+`tests/test_kernels.py` holds that kernel to its oracle.
+"""
+import ctypes
+import pathlib
+import re
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp
+import torch
+
+from repro.kernels.flash_attn import ops as jflash_ops
+from repro.nn import attention as jattention
+from repro.nn import flash_ref as jflash_ref
+from repro.nn import mlp as jmlp
+from repro.nn import rope as jrope
+from repro_torch import interop
+from repro_torch.kernels.flash_attn import ops, ref
+from repro_torch.nn import attention, flash_ref, mlp, rope
+from repro_torch.tree import tree_leaves, tree_map
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
+KEY = jax.random.PRNGKey(0)
+
+
+def normals(*shape, seed=0):
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("head_dim,base", [(32, 1e4), (128, 1e6)])
+def test_rope_matches_jax(head_dim, base):
+    x = normals(2, 9, 3, head_dim)
+    pos = np.random.default_rng(1).integers(0, 4096, (2, 9))
+    jinv = jrope.rope_frequencies(head_dim, base=base)
+    tinv = rope.rope_frequencies(head_dim, base=base)
+    np.testing.assert_allclose(tinv.numpy(), np.asarray(jinv), rtol=1e-6,
+                               atol=0)
+    want = jrope.apply_rope(jnp.asarray(x), jnp.asarray(pos), jinv)
+    got = rope.apply_rope(torch.tensor(x), torch.tensor(pos), tinv)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("gated,use_bias", [(True, False), (False, True)])
+def test_mlp_matches_jax(gated, use_bias):
+    """SwiGLU (the dense family's) and GELU with biases (whisper's)."""
+    jparams = jmlp.mlp_init(KEY, 32, 64, gated=gated, use_bias=use_bias)
+    if use_bias:   # non-zero biases, so that they are exercised
+        jparams = {k: (v + 0.1 if k.startswith("b_") else v)
+                   for k, v in jparams.items()}
+    x = normals(2, 5, 32)
+    want = jmlp.mlp_apply(jparams, jnp.asarray(x))
+    got = mlp.mlp_apply(interop.to_torch(jparams, "cpu"), torch.tensor(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+    params = mlp.mlp_init(torch.Generator().manual_seed(0), 32, 64,
+                          gated=gated, use_bias=use_bias)
+    assert sorted(params) == sorted(jparams)
+    assert all(tuple(params[k].shape) == jparams[k].shape for k in params)
+
+
+# (b, kv heads, group, s, window, causal): GQA groups 1, 2 and 4; windows;
+# s = 520 pads the keys to two blocks of 512; one bidirectional case
+FLASH_CASES = {
+    "g1-s40": (2, 2, 1, 40, None, True),
+    "g2-s40-w9": (1, 2, 2, 40, 9, True),
+    "g4-s520": (1, 1, 4, 520, None, True),
+    "g2-s520-w9": (1, 2, 2, 520, 9, True),
+    "g2-s520-bidirectional": (1, 1, 2, 520, None, False),
+}
+
+
+def folded_case(name, d=16, seed=0):
+    """Folded-layout inputs of the JAX attention's flash branch: q (b,
+    kv, g*s, d) with the positions of each folded row; k, v (b, kv, s,
+    d)."""
+    b, kv, g, s, window, causal = FLASH_CASES[name]
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal(shape).astype(np.float32) for shape in
+               ((b, kv, g * s, d), (b, kv, s, d), (b, kv, s, d)))
+    q_pos = np.tile(np.arange(s), g).astype(np.int32)
+    k_pos = np.arange(s, dtype=np.int32)
+    return (q, k, v, q_pos, k_pos), window, causal, d ** -0.5
+
+
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_flash_forward_matches_jax(case):
+    arrays, window, causal, scale = folded_case(case)
+    jout, jlse = jflash_ref._flash_fwd_inner(
+        *map(jnp.asarray, arrays[:3]), jnp.asarray(arrays[3])[None, None],
+        jnp.asarray(arrays[4])[None, None], None, scale, causal, window,
+        512, False)
+    q, k, v, q_pos, k_pos = (torch.tensor(a) for a in arrays)
+    out, lse = flash_ref.flash_forward(q, k, v, q_pos.long(), k_pos.long(),
+                                       scale, causal, window)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), rtol=0,
+                               atol=1e-5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), rtol=0,
+                               atol=1e-5)
+
+
+def bshd(folded_q, k, v, s):
+    """The kernel layout (b, s, H, D) / (b, s, KV, D) of folded inputs."""
+    return (ref.unfold_queries(folded_q, s), k.transpose(1, 2),
+            v.transpose(1, 2))
+
+
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_flash_function_gradient_matches_jax_grad(case):
+    """FlashAttention with the plain forward injected: its output, and
+    its backward (the port of `_flash_bwd`, fed the forward's lse),
+    against `flash_attention_ref` and `jax.grad` of it."""
+    arrays, window, causal, scale = folded_case(case, seed=1)
+    s = arrays[1].shape[2]
+    cot = normals(*arrays[0].shape, seed=2)
+
+    def jloss(q, k, v):
+        out = jflash_ref.flash_attention_ref(
+            q, k, v, jnp.asarray(arrays[3])[None, None],
+            jnp.asarray(arrays[4])[None, None], None, scale, causal, window,
+            512, False)
+        return jnp.sum(out * cot), out
+
+    (_, jout), jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2),
+                                           has_aux=True)(
+        *map(jnp.asarray, arrays[:3]))
+    leaves = [torch.tensor(a, requires_grad=True) for a in arrays[:3]]
+    q, k, v = bshd(*leaves, s)
+    calls = []
+
+    def fwd(*args):
+        calls.append(1)
+        return ops._plain_forward(*args)
+
+    out = ops.FlashAttention.apply(fwd, q, k, v, causal, window)
+    folded = ref.fold_queries(out, k.shape[2])
+    np.testing.assert_allclose(folded.detach().numpy(), np.asarray(jout),
+                               rtol=0, atol=1e-5)
+    torch.sum(folded * torch.tensor(cot)).backward()
+    assert len(calls) == 1           # the backward runs no forward again
+    for got, want in zip(leaves, jgrads):
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(want),
+                                   rtol=0, atol=1e-5)
+
+
+# tests/test_kernels.py::TestFlashAttn's (s, window) pairs, and one
+# bidirectional case at a multiple of the block (the JAX wrapper pads
+# with unmasked zero keys otherwise)
+KERNEL_CASES = [(32, None, True), (40, 9, True), (64, 16, True),
+                (24, None, True), (32, None, False)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,window,causal", KERNEL_CASES)
+def test_plain_version_matches_jax_kernel(s, window, causal, dtype):
+    """The kernel's plain version (ops on a CPU tensor) against the JAX
+    wrapper around `flash_attention_pallas` in interpret mode, at
+    tests/test_kernels.py's shapes and tolerances."""
+    b, nh, nkv, hd = 2, 4, 2, 16
+    q, k, v = (normals(b, s, h, hd, seed=i)
+               for i, h in enumerate((nh, nkv, nkv)))
+    jdtype = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    want = jflash_ops.flash_attention(
+        *(jnp.asarray(a, jdtype) for a in (q, k, v)), n_kv_heads=nkv,
+        causal=causal, window=window, bq=16, bk=16, interpret=True)
+    tdtype = getattr(torch, dtype)
+    got = ops.flash_attention(*(torch.tensor(a).to(tdtype)
+                                for a in (q, k, v)),
+                              causal=causal, window=window)
+    assert got.dtype == torch.float32 and got.shape == (b, s, nh, hd)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32),
+                               rtol=0,
+                               atol=2e-5 if dtype == "float32" else 0.05)
+
+
+def test_plain_lse_is_the_row_log_sum_exp():
+    q, k, v = (torch.tensor(normals(1, 70, h, 32, seed=i))
+               for i, h in enumerate((4, 2, 2)))
+    _, lse = ref.flash_attention_plain(q, k, v, window=20)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q,
+                          k.repeat_interleave(2, dim=2)) * 32 ** -0.5
+    i, j = torch.arange(70)[:, None], torch.arange(70)[None, :]
+    scores = scores.masked_fill((j > i) | (j <= i - 20), float("-inf"))
+    torch.testing.assert_close(lse, torch.logsumexp(scores, dim=-1),
+                               rtol=0, atol=1e-5)
+
+
+def test_ctypes_signature_matches_the_cuda_entry_point():
+    """The wrapper's argtypes against `extern "C" int flash_attn(...)` in
+    csrc/flash_attn.cu: one ctypes type per C parameter, of its kind."""
+    src = (pathlib.Path(ops.__file__).parents[2] / "csrc"
+           / "flash_attn.cu").read_text()
+    decl = re.search(r'extern "C" int flash_attn\(([^)]*)\)', src).group(1)
+    params = [" ".join(p.split()) for p in decl.split(",")]
+    kinds = [ctypes.c_void_p if "*" in p else
+             ctypes.c_longlong if p.startswith("long long") else ctypes.c_int
+             for p in params]
+    assert ops.ARGTYPES == kinds
+
+
+def test_wrapper_refuses_what_the_kernel_does_not_take():
+    q, k, v = (torch.zeros(1, 8, h, 32) for h in (4, 2, 2))
+    with pytest.raises(ValueError, match="shapes"):
+        ops.flash_attention(q, k[:, :4], v[:, :4])
+    with pytest.raises(ValueError, match="shapes"):
+        ops.flash_attention(q, torch.zeros(1, 8, 3, 32),
+                            torch.zeros(1, 8, 3, 32))
+    with pytest.raises(ValueError, match="dtype"):
+        ops.flash_attention(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError, match="window"):
+        ops.flash_attention(q, k, v, window=0)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops._kernel_forward(q, k, v, True, None)
+
+
+def attention_case(s, qk_norm, seed=0):
+    d_model, nh, nkv, hd = 64, 4, 2, 16
+    jparams = jattention.attention_init(KEY, d_model, nh, nkv, hd,
+                                        qk_norm=qk_norm)
+    if qk_norm:   # scales away from 1, so that they are exercised
+        jparams = dict(jparams, q_norm={"scale": jnp.full((hd,), 1.5)},
+                       k_norm={"scale": jnp.full((hd,), 0.7)})
+    x = normals(2, s, d_model, seed=seed)
+    kw = dict(n_heads=nh, n_kv_heads=nkv, qk_norm=qk_norm)
+    return jparams, x, kw, hd
+
+
+@pytest.mark.parametrize("qk_norm", [False, True])
+@pytest.mark.parametrize("s", [24, 520])
+def test_attention_matches_jax(s, qk_norm):
+    """Values and gradients (x and every parameter) on both branches:
+    s = 24 takes the naive softmax, s = 520 the flash path (the kernel
+    wrapper's plain forward and the port's FlashAttention-2 backward)."""
+    jparams, x, kw, hd = attention_case(s, qk_norm)
+    cot = normals(2, s, 64, seed=3)
+    jinv = jrope.rope_frequencies(hd)
+
+    def jloss(p, x):
+        y = jattention.attention_apply(p, x, inv_freq=jinv, **kw)
+        return jnp.sum(y * cot), y
+
+    (_, jy), (jgp, jgx) = jax.jit(jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True))(jparams, jnp.asarray(x))
+    tparams = tree_map(lambda t: t.requires_grad_(),
+                       interop.to_torch(jax.device_get(jparams), "cpu"))
+    tx = torch.tensor(x, requires_grad=True)
+    y = attention.attention_apply(tparams, tx,
+                                  inv_freq=rope.rope_frequencies(hd), **kw)
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(jy), rtol=0,
+                               atol=1e-5)
+    torch.sum(y * torch.tensor(cot)).backward()
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jgx), rtol=0,
+                               atol=1e-5)
+    for t, want in zip(tree_leaves(tparams), jax.tree_util.tree_leaves(jgp)):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(want), rtol=0,
+                                   atol=1e-4)
+
+
+def test_flash_branch_starts_at_the_same_length_as_jax(monkeypatch):
+    """s * s >= 512 * 512 + 1: s = 512 runs the naive softmax in both
+    packages, s = 513 the flash path in both."""
+    taken = {"jax": [], "port": []}
+    jref = jattention.flash_attention_ref
+    tref = ops.flash_attention
+    monkeypatch.setattr(jattention, "flash_attention_ref", lambda *a: (
+        taken["jax"].append(a[0].shape), jref(*a))[1])
+    monkeypatch.setattr(ops, "flash_attention", lambda *a, **k: (
+        taken["port"].append(a[0].shape), tref(*a, **k))[1])
+    for s in (512, 513):
+        jparams, x, kw, _ = attention_case(s, False)
+        x = x[:1]
+        jattention.attention_apply(jparams, jnp.asarray(x), **kw)
+        attention.attention_apply(interop.to_torch(jparams, "cpu"),
+                                  torch.tensor(x), **kw)
+    assert taken["jax"] == [(1, 2, 2 * 513, 16)]
+    assert taken["port"] == [(1, 513, 4, 16)]
+
+
+def test_attention_and_mlp_refuse_what_is_not_ported():
+    jparams, x, kw, _ = attention_case(8, False)
+    tparams = interop.to_torch(jparams, "cpu")
+    tx = torch.tensor(x)
+    for serving in (dict(cache={}), dict(kv_x=tx), dict(return_kv=True),
+                    dict(q_positions=torch.zeros(2, 8))):
+        with pytest.raises(NotImplementedError, match="A14"):
+            attention.attention_apply(tparams, tx, **kw, **serving)
+    with pytest.raises(NotImplementedError, match="A12"):
+        attention.attention_apply({"wqkv": None}, tx, **kw)
+    with pytest.raises(NotImplementedError, match="A12"):
+        attention.attention_init(torch.Generator(), 64, 4, 2, fuse_qkv=True)
+    with pytest.raises(NotImplementedError, match="A12"):
+        mlp.mlp_init(torch.Generator(), 8, 16, fuse_gate=True)
+    with pytest.raises(NotImplementedError, match="A12"):
+        mlp.mlp_apply({"w_inga": None}, tx)
+    with pytest.raises(NotImplementedError, match="A12"):
+        mlp.mlp_apply({"w_in": None}, tx, tp_axis="model")
+    x520 = torch.tensor(attention_case(520, False)[1][:1])
+    with pytest.raises(NotImplementedError, match="A12"):
+        attention.attention_apply(tparams, x520, flash_repeat_kv=True, **kw)

@@ -36,6 +36,7 @@ from repro_torch.models import gan as tgan
 from repro_torch.models import specs as tspecs
 from repro_torch.tree import tree_leaves, tree_unflatten
 from test_torch_protocol import JaxDraws, quant_step_close
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 JCFG = jget_arch_config("mamba2-130m").reduced()
 TCFG = get_arch_config("mamba2-130m").reduced()
@@ -79,11 +80,11 @@ def test_arch_configs_match_jax():
         assert dataclasses.asdict(port) == dataclasses.asdict(ref)
         assert port.group_pattern == ref.group_pattern
         assert port.n_groups_stack == ref.n_groups_stack
-    assert list_archs() == ["mamba2-130m"]
+    assert list_archs() == ["mamba2-130m", "granite-3-2b", "qwen3-1.7b"]
     assert dataclasses.asdict(get_arch_config("dcgan")) == \
         dataclasses.asdict(jget_arch_config("dcgan"))
     with pytest.raises(KeyError, match="A13"):
-        get_arch_config("qwen3-1.7b")
+        get_arch_config("mixtral-8x22b")
 
 
 def test_full_width_parameter_counts_and_shapes_match_jax():
@@ -172,11 +173,14 @@ def test_remat_gives_the_same_values_and_gradients():
 
 
 def test_backbone_refuses_what_is_not_ported():
-    dense = dataclasses.replace(TCFG, family="dense", ssm=None)
-    with pytest.raises(NotImplementedError, match="A13"):
-        tbackbone.backbone_init(torch.Generator(), dense)
-    with pytest.raises(NotImplementedError, match="A13"):
-        tgan.gan_init(torch.Generator(), dense)
+    moe = get_arch_config("qwen3-1.7b").reduced()
+    moe = dataclasses.replace(moe, family="moe")
+    hybrid = dataclasses.replace(TCFG, family="hybrid", attn_every=2)
+    for cfg in (moe, hybrid):
+        with pytest.raises(NotImplementedError, match="A13"):
+            tbackbone.backbone_init(torch.Generator(), cfg)
+        with pytest.raises(NotImplementedError, match="A13"):
+            tgan.gan_init(torch.Generator(), cfg)
     params = tbackbone.backbone_init(torch.Generator().manual_seed(0), TCFG)
     h = torch.zeros((1, 4, TCFG.d_model))
     with pytest.raises(NotImplementedError, match="A14"):

@@ -32,6 +32,7 @@ from repro_torch.models import specs as tspecs
 from repro_torch.tree import tree_leaves
 from test_torch_protocol import (JCFG, KEY, TCFG, JaxDraws, _configs,
                                  quant_step_close)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 K, N_LOCAL = 6, 8
 FAULTS = dict(n_devices=K, dropout_prob=0.25, n_free_riders=1,

@@ -29,6 +29,7 @@ from test_torch_faults import (FAULTS, K, N_LOCAL, FaultJaxDraws, _data,
                                check_trainer_matches_jax)
 from test_torch_protocol import (JCFG, KEY, TCFG, JaxDraws, _configs,
                                  quant_step_close)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @functools.cache

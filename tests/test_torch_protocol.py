@@ -28,6 +28,7 @@ from repro_torch.core import protocol as tprotocol
 from repro_torch.models import dcgan as tdcgan
 from repro_torch.models import specs as tspecs
 from repro_torch.tree import tree_leaves
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SMALL = dict(nz=8, ngf=8, ndf=8, nc=1, image_size=16)
 JCFG, TCFG = JaxDCGANConfig(**SMALL), DCGANConfig(**SMALL)

@@ -16,6 +16,7 @@ from repro.models import dcgan as jdcgan
 from repro_torch import interop
 from repro_torch.core import quantize as tquant
 from repro_torch.tree import tree_leaves
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CFG = JaxDCGANConfig(nz=8, ngf=8, ndf=8, nc=1, image_size=16)
 

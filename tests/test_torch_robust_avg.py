@@ -22,6 +22,7 @@ from repro_torch import interop
 from repro_torch.core import averaging as tavg
 from repro_torch.kernels.robust_avg import ops
 from repro_torch.tree import tree_leaves
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # f32 sums of the survivors in another order than the JAX kernel's (and
 # than the float64 numpy reference's)

@@ -28,6 +28,7 @@ from repro.nn import ssm as jssm
 from repro_torch import interop
 from repro_torch.kernels.ssd_scan import ops, ref
 from repro_torch.nn import ssm
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # (b, s, h, p, g, n, chunk): s % chunk != 0, g = 2, chunk > s, s == chunk
 SCAN_CASES = {

@@ -19,6 +19,7 @@ from repro_torch import interop
 from repro_torch.core import averaging as tavg
 from repro_torch.kernels.wavg import ops
 from repro_torch.tree import tree_leaves
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _payload(k, n, seed=0):
