@@ -7,22 +7,27 @@ Phases, in order; any failure exits non-zero:
   1. device   the card's name and power limit (nvidia-smi); TF32 off for
               matmuls and cuDNN convolutions, so float32 means float32
   2. build    every kernel of the main paths (wavg, trimmed_wavg,
-              ssd_scan, flash_attn), compiled with nvcc from
+              ssd_scan, flash_attn, ring_accum), compiled with nvcc from
               src/repro_torch/csrc/, one nvcc per source, all started
               together
   3. kernels  each kernel against its plain PyTorch version at the main
               paths' shapes and at edge shapes; timed with CUDA events
               beside its bound and, where one exists, a PyTorch library
-              call; the trimmed mean keeps the honest rows' range
+              call; the trimmed mean keeps the honest rows' range;
+              ring_accum for the three wire dtypes, in the ring's chunks
+              at non-zero row offsets, at the int16 extremes
   4. check    small rounds on the card (kernels) and on the CPU (plain
               versions) from the same draws: one plain protocol round,
               one protocol round and one FedGAN round under a fault
               program with the trimmed mean, one backbone-GAN round on
               the reduced mamba2-130m and one on the reduced granite-3-2b
-              with 2 kv heads at seq_len 520 (the flash branch)
-  5. train    four main paths, through `Trainer.run`, each with the
+              with 2 kv heads at seq_len 520 (the flash branch); then
+              small mesh rounds, card against card: 4 gloo ranks on this
+              card (ring, pallas and jnp serial, ring parallel, FedGAN
+              ring) against the stacked round on the card
+  5. train    five main paths, through `Trainer.run`, each with the
               launch counts set to 0 just before it and read just after;
-              the first two on the full-width DCGAN (K=10, 64x64):
+              the first three on the full-width DCGAN (K=10, 64x64):
               a. the protocol: 3 serial rounds and 3 parallel rounds with
                  best-channel scheduling at ratio 0.5; one wavg launch per
                  round, finite values, a moving discriminator, one FID
@@ -33,6 +38,13 @@ Phases, in order; any failure exits non-zero:
                  FedGAN: 2 rounds without faults or reducer (two wavg
                  launches each) and 2 under the faults with the trimmed
                  mean (one trimmed_wavg launch each)
+              e. the mesh layout: 10 ranks (one a worker) share this card
+                 over gloo, `Trainer(layout="mesh")`: 2 serial and 1
+                 parallel ring round, 1 pallas round, 1 FedGAN ring round,
+                 1 ring round under dropout and stragglers; per rank 37
+                 ring_accum launches a ring round and 1 wavg launch on the
+                 pallas round, the ring's wire bytes, masks and weights
+                 as a stacked Trainer's
               c. the backbone-GAN on the full-width mamba2-130m (K=4,
                  seq_len 512, token data): 2 serial rounds and 1
                  parallel round with best-channel scheduling at ratio
@@ -42,11 +54,11 @@ Phases, in order; any failure exits non-zero:
                  layers cut to 4 (K=4, m=4, seq_len 1024): 88 flash_attn
                  launches and one wavg launch per round, finite values,
                  one token FID, the peak device memory
-  6. profile  one more round of the DCGAN protocol and of the mamba2-130m
-              backbone-GAN (after 5c; that trainer is then freed) and of
-              the granite-3-2b backbone-GAN (after 5d) under
-              torch.profiler: device-busy share and the kernels that
-              take the most device time
+  6. profile  one more round of the DCGAN protocol (after 5b; that trainer
+              is then freed), of the mamba2-130m backbone-GAN (after 5c;
+              freed too) and of the granite-3-2b backbone-GAN (after 5d)
+              under torch.profiler: device-busy share and the kernels
+              that take the most device time
 The last two lines are the `kernels` JSON line and
 {"ok": true, "device": {...}}.
 """
@@ -741,8 +753,9 @@ def train_hostile(torch, wavg_ops, robust_ops, spec, cfg, shards):
 
 def train(torch, ops, robust_ops):
     """The protocol's path: Trainer.run on the full DCGAN, both
-    schedules. Returns its wavg launches, the last trainer and the
-    (spec, cfg, shards) that the hostile path reuses."""
+    schedules. Returns its wavg launches, the last trainer, the (spec,
+    cfg, shards) that the hostile path reuses and the metrics of the
+    first serial round, which the mesh path's first round repeats."""
     import numpy as np
     from repro_torch.configs import DCGANConfig, ProtocolConfig
     from repro_torch.core import Trainer, protocol
@@ -761,7 +774,7 @@ def train(torch, ops, robust_ops):
                  scheduling_ratio=0.5)]
 
     ops.launches = robust_ops.launches = 0  # the path starts here
-    trainer = None
+    trainer = first_round = None
     for run in runs:
         pcfg = ProtocolConfig(n_devices=10, n_d=5, n_g=5, sample_size=128,
                               server_sample_size=128, optimizer="adam", **run)
@@ -788,6 +801,7 @@ def train(torch, ops, robust_ops):
                   f"D {rec.metrics['disc_objective']:+.5f}  "
                   f"G {rec.metrics['gen_objective']:+.5f}  "
                   f"weights {rec.weights.tolist()}  {secs:.3f} s")
+        first_round = first_round or trainer.history[0].metrics
         leaves = tree_leaves(trainer.state)
         if not all(bool(torch.isfinite(x).all()) for x in leaves
                    if x.is_floating_point()):
@@ -818,7 +832,7 @@ def train(torch, ops, robust_ops):
     if not np.isfinite(fid):
         raise AssertionError(f"FID {fid}")
     print(f"FID after the last round: {fid:.4f}")
-    return launches, trainer, (spec, cfg, shards)
+    return launches, trainer, (spec, cfg, shards), first_round
 
 
 def train_backbone(torch, wavg_ops, kernel_ops, kernel, bb):
@@ -965,6 +979,452 @@ def profile_round(torch, trainer, label, *, host_ops=True):
         print(f"  {us / 1e3:9.3f} ms  {name[:100]}")
 
 
+RING_TIMED = (1_356, 63_269, 169_997)  # the DCGAN, mamba2-130m, granite D
+RING_ATOL, RING_RTOL = 1e-6, 1e-5    # one FMA rounding vs mul-then-add
+
+
+def ring_inputs(torch, gen, nb, dtype):
+    """acc (nb, 2048) f32, q (nb, 2048) of the wire dtype, coef (nb,) f32
+    as the ring makes them: int16 over its whole range (the quantizer
+    emits both extremes) with coef = w_norm * amax / 32767; int32 over
+    +-2**23 (24 bits); f32 unquantized with coef = w_norm."""
+    acc = torch.randn((nb, 2048), generator=gen, device="cuda")
+    w = torch.rand(nb, generator=gen, device="cuda")
+    if dtype == torch.float32:
+        return acc, torch.randn((nb, 2048), generator=gen, device="cuda"), w
+    hi = 32767 if dtype == torch.int16 else 2 ** 23 - 1
+    q = torch.randint(-hi - 1, hi + 1, (nb, 2048), generator=gen,
+                      device="cuda", dtype=dtype)
+    q[0, :4] = torch.tensor([-hi - 1, hi, -hi - 1, hi], dtype=dtype)
+    return acc, q, w / hi
+
+
+def kernel_device_ms(torch, fn, inputs, kernel_name, n=24):
+    """The mean device time of one launch of `kernel_name` over `n` calls
+    of `fn`, from torch.profiler's CUDA activity: at small shapes the
+    CUDA-event time of back-to-back calls is the host's launch rate, not
+    the kernel's. None when the profiler sees no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            fn(*inputs[i % len(inputs)])
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and kernel_name in e.name]
+    return sum(us) / len(us) / 1e3 if us else None
+
+
+def ring_library(acc, q, coef):
+    """The one PyTorch call that computes ring_accum: addcmul promotes the
+    wire to f32 inside its own kernel and accumulates in place. Timed
+    beside the kernel only; the port does not call it."""
+    return acc.addcmul_(coef[:, None], q)
+
+
+def check_ring_accum(torch, ops):
+    """The ring_accum kernel against its plain version for the three wire
+    dtypes, whole and chunk by chunk at the ring's row offsets (a ragged
+    split included, the rows outside a chunk unchanged), at the int16
+    extremes; timings at the DCGAN's, mamba2-130m's and granite-3-2b's
+    discriminator payloads, beside the plain version and `ring_library`
+    (checked against the plain version first). Returns the kernel's JSON
+    entry (launches unset)."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    max_err, n_cases = {}, 0
+    for dtype in (torch.int16, torch.int32, torch.float32):
+        for nb in (1, 3, 5, RING_TIMED[0], RING_TIMED[0] + 1):
+            acc, q, coef = ring_inputs(torch, gen, nb, dtype)
+            want = ops.ring_accum_ref(acc.clone(), q, coef)
+            whole = ops.ring_accum_(acc.clone(), q, coef)
+            # the ring's chunks: row slices at non-zero offsets, one launch
+            # each, 4 chunks (ragged at nb = 5 and 1,357)
+            chunked = acc.clone()
+            for r0, r1 in ops._chunk_bounds(nb, ops.DEFAULT_CHUNKS):
+                ops.ring_accum_(chunked[r0:r1], q[r0:r1], coef[r0:r1])
+                torch.cuda.synchronize()
+                if r1 < nb and not torch.equal(chunked[r1:], acc[r1:]):
+                    raise AssertionError(f"ring_accum wrote past rows "
+                                         f"[{r0}, {r1}) of {nb}")
+            torch.cuda.synchronize()
+            for got in (whole, chunked):
+                torch.testing.assert_close(got, want, rtol=RING_RTOL,
+                                           atol=RING_ATOL)
+            max_err[(dtype, nb)] = float((whole - want).abs().max())
+            n_cases += 1
+    print(f"ring_accum matches its plain version for int16, int32 and f32 "
+          f"wires at {n_cases} shapes, whole and in the ring's chunks (rtol "
+          f"{RING_RTOL}, atol {RING_ATOL}); max abs err "
+          f"{max(max_err.values()):.3e}")
+
+    timed = {}
+    for nb in RING_TIMED:
+        set_bytes = nb * 2048 * 6
+        n_sets = max(3, -(-150_000_000 // set_bytes))   # together past L2
+        sets = [ring_inputs(torch, gen, nb, torch.int16)
+                for _ in range(n_sets)]
+        acc, q, coef = sets[0]
+        torch.testing.assert_close(
+            ring_library(acc.clone(), q, coef),
+            ops.ring_accum_ref(acc.clone(), q, coef),
+            rtol=RING_RTOL, atol=RING_ATOL)
+        kernel_ms = time_ms(ops.ring_accum_, sets)
+        plain_ms = time_ms(ops.ring_accum_ref, sets)
+        library_ms = time_ms(ring_library, sets)
+        # bytes: acc read and written, q read (int16), coef read once
+        n_bytes = nb * 2048 * (4 + 2 + 4) + nb * 4
+        flops = 2 * nb * 2048
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        flops_ms = flops / F32_FLOPS_PER_S * 1e3
+        print(f"ring_accum int16 rows={nb}: kernel {kernel_ms:.4f} ms "
+              f"(CUDA events, back to back), plain {plain_ms:.4f} ms, "
+              f"acc.addcmul_ {library_ms:.4f} ms, bound "
+              f"{max(bytes_ms, flops_ms):.4f} ms ({n_bytes} B); "
+              f"{bytes_ms / kernel_ms:.3f} of HBM peak")
+        timed[nb] = dict(ms=kernel_ms, plain_ms=plain_ms,
+                         bound_ms=max(bytes_ms, flops_ms),
+                         bound_by="bytes" if bytes_ms >= flops_ms
+                         else "operations", library_ms=library_ms)
+        if nb == RING_TIMED[0]:
+            timed[nb]["device_ms"] = kernel_device_ms(
+                torch, ops.ring_accum_, sets, "ring_accum_kernel")
+            timed[nb]["library_device_ms"] = kernel_device_ms(
+                torch, ring_library, sets, "addcmul")
+        del sets
+    main = timed[RING_TIMED[0]]
+    for what, key in (("kernel", "device_ms"),
+                      ("acc.addcmul_", "library_device_ms")):
+        print(f"ring_accum int16 rows={RING_TIMED[0]}: {what}'s device time "
+              f"a launch " + ("not measured (the profiler saw no kernel)"
+                              if main[key] is None else
+                              f"{main[key]:.4f} ms (profiler), "
+                              f"{main['bound_ms'] / main[key]:.3f} of the "
+                              f"bound"))
+    return {"name": "ring_accum", "route": "cuda",
+            "source": "src/repro_torch/csrc/ring_accum.cu",
+            "replaces": "src/repro/kernels/ring_wavg/kernel.py:35",
+            "launches": None,
+            "max_abs_err": max_err[(torch.int16, RING_TIMED[0])],
+            **timed[RING_TIMED[0]],
+            "backbone_shape": {"rows": RING_TIMED[1], **timed[RING_TIMED[1]]},
+            "granite_shape": {"rows": RING_TIMED[2], **timed[RING_TIMED[2]]}}
+
+
+def _rank_torch():
+    """A mesh rank's torch, with TF32 off as in the parent, and one host
+    thread: up to 10 ranks share the machine's cores, and their default
+    per-core OpenMP threads would spin against each other."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(1)
+    return torch
+
+
+def _small_mesh_setup(torch):
+    """The reduced DCGAN, config and data of the small mesh rounds, the
+    same in every process (seeded on the CPU)."""
+    from repro_torch.configs import DCGANConfig, ProtocolConfig
+    from repro_torch.models import dcgan
+    from repro_torch.models.specs import make_dcgan_spec
+    cfg = DCGANConfig(nz=16, ngf=8, ndf=8, nc=3, image_size=16)
+    pcfg = ProtocolConfig(n_devices=4, n_d=2, n_g=2, sample_size=16,
+                          server_sample_size=16, lr_d=1e-3, lr_g=1e-3,
+                          optimizer="adam")
+    gen = torch.Generator().manual_seed(7)
+    params = dcgan.gan_init(gen, cfg)
+    data = torch.rand((4, 32, 16, 16, 3), generator=gen) * 2 - 1
+    weights = torch.tensor([16.0, 0.0, 16.0, 16.0])
+    return make_dcgan_spec(cfg), pcfg, params, data, weights
+
+
+def _small_round_setup(torch, algorithm, schedule, n_devices, device):
+    """(pcfg, make_state, round draws) of one small mesh round."""
+    from repro_torch.core import fedgan, protocol
+    spec, pcfg, params, data, weights = _small_mesh_setup(torch)
+    pcfg = dataclasses.replace(pcfg, schedule=schedule)
+    make_state = (fedgan.make_fedgan_state if algorithm == "fedgan"
+                  else protocol.make_train_state)
+    payload = (params["disc"] if algorithm == "proposed"
+               else {"gen": params["gen"], "disc": params["disc"]})
+    draws = protocol.DrawSampler(
+        spec, pcfg, seed=7, n_local=32,
+        n_params=protocol.count_params(payload), device=device)(0)
+    state = make_state(lambda g: params, pcfg, n_devices, device=device)
+    return spec, pcfg, state, data, weights, draws
+
+
+SMALL_MESH_RUNS = (("proposed", "ring", "serial"),
+                   ("proposed", "pallas", "serial"),
+                   ("proposed", "jnp", "serial"),
+                   ("proposed", "ring", "parallel"),
+                   ("fedgan", "ring", "serial"))
+
+
+def small_mesh_rank(rank, world_size, device):
+    """One small mesh round of each of SMALL_MESH_RUNS on this rank: (new
+    state, metrics, (ring_accum, wavg) launches)."""
+    torch = _rank_torch()
+    from repro_torch.core import shard_round
+    from repro_torch.kernels.ring_wavg import ops as ring_ops
+    from repro_torch.kernels.wavg import ops as wavg_ops
+    from repro_torch.tree import tree_index
+    out = []
+    for algorithm, impl, schedule in SMALL_MESH_RUNS:
+        spec, pcfg, state, data, weights, draws = _small_round_setup(
+            torch, algorithm, schedule, 1, device)
+        fedgan = algorithm == "fedgan"
+        keys = (shard_round.FEDGAN_STACKED_KEYS if fedgan
+                else shard_round.PROPOSED_STACKED_KEYS)
+        state = {k: tree_index(v, 0) if k in keys else v
+                 for k, v in state.items()}
+        before = (ring_ops.launches, wavg_ops.launches)
+        fn = shard_round.fedgan_mesh_round if fedgan else shard_round.mesh_round
+        new_state, metrics = fn(spec, pcfg, state, data[rank].to(device),
+                                weights[rank], draws, avg_impl=impl)
+        torch.cuda.synchronize()
+        out.append((new_state, {k: float(v) for k, v in metrics.items()},
+                    (ring_ops.launches - before[0],
+                     wavg_ops.launches - before[1])))
+    return out
+
+
+def check_small_mesh_rounds(torch):
+    """Small mesh rounds, card against card: K=4 ranks on this card over
+    gloo, one round of each of SMALL_MESH_RUNS, against the stacked round
+    on the card from the same weights and draws. Globals to one
+    quantization step (the generator of the proposed protocol, trained on
+    the server, to round-off), every rank's own optimizer state, the
+    metrics, and the globals equal on every rank."""
+    from repro_torch.core import fedgan, protocol
+    from repro_torch.kernels.ring_wavg import ops as ring_ops
+    from repro_torch.launch import mesh
+    from repro_torch.tree import tree_leaves
+    t0 = time.perf_counter()
+    per_rank = mesh.spawn(small_mesh_rank, 4, backend="gloo", timeout_s=300)
+    secs = time.perf_counter() - t0
+    for i, (algorithm, impl, schedule) in enumerate(SMALL_MESH_RUNS):
+        spec, pcfg, state, data, weights, draws = _small_round_setup(
+            torch, algorithm, schedule, 4, "cuda")
+        round_fn = (fedgan.fedgan_round if algorithm == "fedgan"
+                    else protocol.gan_round)
+        want, want_m = round_fn(spec, pcfg, state, data.cuda(),
+                                weights.cuda(), draws)
+        quantized = ("gen", "disc") if algorithm == "fedgan" else ("disc",)
+        own = (("gen_opt", "disc_opt") if algorithm == "fedgan"
+               else ("disc_opt",))
+        n_blocks = ring_ops._n_blocks({p: state[p] for p in quantized})
+        for r, (st, metrics, launched) in enumerate(
+                out[i] for out in per_rank):
+            ring_want = 1 + 3 * min(4, n_blocks) if impl == "ring" else 0
+            if launched != (ring_want, int(impl == "pallas")):
+                raise AssertionError(f"mesh {algorithm}/{impl} rank {r}: "
+                                     f"(ring_accum, wavg) launches "
+                                     f"{launched}")
+            for part in ("gen", "disc"):
+                for a, b in zip(tree_leaves(want[part]),
+                                tree_leaves(st[part])):
+                    step = float(a.abs().max()) / 32767
+                    torch.testing.assert_close(
+                        torch.from_numpy(b), a.cpu(), rtol=0,
+                        atol=step + 1e-6 if part in quantized else 1e-5)
+            for part in own:
+                for a, b in zip(tree_leaves(want[part]),
+                                tree_leaves(st[part])):
+                    torch.testing.assert_close(torch.from_numpy(b),
+                                               a[r].cpu(), rtol=0, atol=1e-5)
+            for key, value in want_m.items():
+                if abs(metrics[key] - float(value)) > 1e-5:
+                    raise AssertionError(f"mesh {algorithm}/{impl} rank {r}"
+                                         f" {key}: {metrics[key]} vs "
+                                         f"{float(value)}")
+            first = per_rank[0][i][0]
+            for part in ("gen", "disc"):      # the ring: each rank's order
+                for a, b in zip(tree_leaves(first[part]),
+                                tree_leaves(st[part])):
+                    torch.testing.assert_close(torch.from_numpy(b),
+                                               torch.from_numpy(a),
+                                               rtol=1e-6, atol=1e-6)
+        print(f"small mesh {algorithm} {schedule} round, avg_impl={impl}, "
+              f"4 gloo ranks on this card: matches the stacked round on the "
+              f"card ({per_rank[0][i][1]})")
+    print(f"small mesh rounds: {secs:.2f} s, process start-up included")
+
+
+# The mesh path at full width: one rank per DCGAN worker (K=10) on this
+# card over gloo. (rounds, algorithm, avg_impl, seed, protocol settings,
+# fault program) of each Trainer, in order.
+MESH_RUNS = (
+    (2, "proposed", "ring", 0, dict(schedule="serial", scheduler="all"),
+     None),
+    (1, "proposed", "ring", 0, dict(schedule="parallel",
+                                    scheduler="best_channel",
+                                    scheduling_ratio=0.5), None),
+    (1, "proposed", "pallas", 0, dict(schedule="serial", scheduler="all"),
+     None),
+    (1, "fedgan", "ring", 1, dict(schedule="serial", scheduler="all"), None),
+    (1, "proposed", "ring", 2, dict(schedule="serial", scheduler="all"),
+     dict(n_devices=10, dropout_prob=0.1, straggler_factor=2.0)),
+)
+
+
+def _mesh_trainer(torch, shards, run, device, layout):
+    from repro_torch.configs import DCGANConfig, ProtocolConfig
+    from repro_torch.core import Trainer
+    from repro_torch.core.faults import FaultConfig
+    from repro_torch.models import dcgan
+    from repro_torch.models.specs import make_dcgan_spec
+    _, algorithm, impl, seed, settings, fcfg = run
+    cfg = DCGANConfig()
+    pcfg = ProtocolConfig(n_devices=10, n_d=5, n_g=5, sample_size=128,
+                          server_sample_size=128, optimizer="adam",
+                          **settings)
+    return Trainer(make_dcgan_spec(cfg, gen_loss_variant="nonsaturating"),
+                   pcfg, lambda g: dcgan.gan_init(g, cfg), shards, seed=seed,
+                   algorithm=algorithm, layout=layout,
+                   avg_impl=impl if layout == "mesh" else "pallas",
+                   faults=FaultConfig(**fcfg) if fcfg else None,
+                   device=device)
+
+
+def mesh_rank(shards_path, rank, world_size, device):
+    """The mesh path on one rank: every run of MESH_RUNS through
+    `Trainer(layout="mesh")`, with this rank's launch and wire-byte counts
+    set to 0 just before the path and read around every round."""
+    import numpy as np
+    torch = _rank_torch()
+    import torch.distributed as dist
+    from repro_torch.kernels.ring_wavg import ops as ring_ops
+    from repro_torch.kernels.robust_avg import ops as robust_ops
+    from repro_torch.kernels.wavg import ops as wavg_ops
+    from repro_torch.tree import tree_leaves
+    shards = np.load(shards_path, mmap_mode="c")
+
+    def counts():
+        return (ring_ops.launches, wavg_ops.launches, robust_ops.launches,
+                ring_ops.wire_bytes_sent)
+
+    ring_ops.launches = wavg_ops.launches = robust_ops.launches = 0
+    ring_ops.wire_bytes_sent = 0                  # the path starts here
+    out = []
+    for run in MESH_RUNS:
+        trainer = _mesh_trainer(torch, shards, run, device, "mesh")
+        payload = (trainer.state["disc"] if run[1] == "proposed" else
+                   {"gen": trainer.state["gen"], "disc": trainer.state["disc"]})
+        disc0 = [x.clone() for x in tree_leaves(trainer.state["disc"])]
+        rounds = []
+        for _ in range(run[0]):
+            before = counts()
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            rec = trainer.run(1)[-1]
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            rounds.append(dict(mask=rec.mask, weights=rec.weights,
+                               metrics=rec.metrics, secs=secs,
+                               counts=tuple(a - b for a, b in
+                                            zip(counts(), before))))
+        finite = all(bool(torch.isfinite(x).all())
+                     for x in tree_leaves(trainer.state)
+                     if x.is_floating_point())
+        moved = max(float((a - b).abs().max()) for a, b in
+                    zip(disc0, tree_leaves(trainer.state["disc"])))
+        out.append(dict(rounds=rounds, finite=finite, moved=moved,
+                        wire_want=ring_ops.ring_wire_bytes_per_rank(
+                            payload, trainer.pcfg.quantize_bits, world_size)))
+        del trainer
+        torch.cuda.empty_cache()
+    return out, counts()                          # ... and ends here
+
+
+def train_mesh(torch, shards, first_round):
+    """The mesh path at full width: K=10 ranks on this card over gloo,
+    the DCGAN of path 5a, each run of MESH_RUNS; per rank and round 37
+    ring_accum launches on a ring round (1 + 4 chunks x 9 hops), one wavg
+    launch on the pallas round, no trimmed_wavg launch, the ring's wire
+    bytes as `ring_wire_bytes_per_rank`; masks and weights as a stacked
+    Trainer's of the same seed (its host driver only). The first ring
+    round is path 5a's first serial round (same seed and settings): its
+    objectives must be `first_round`'s to f32 round-off. Returns the
+    path's launch counts summed over the ranks."""
+    import tempfile
+    import numpy as np
+    from repro_torch.launch import mesh
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "shards.npy")
+        np.save(path, shards)
+        t0 = time.perf_counter()
+        per_rank = mesh.spawn(functools.partial(mesh_rank, path), 10,
+                              backend="gloo", timeout_s=900)
+    print(f"mesh path: 10 ranks share one card; the ring's wire is gloo "
+          f"over host loopback (not a measure of an NCCL ring); "
+          f"{time.perf_counter() - t0:.2f} s with process start-up")
+    for i, run in enumerate(MESH_RUNS):
+        n_rounds, algorithm, impl = run[:3]
+        ref = _mesh_trainer(torch, shards, run, "cuda", "stacked")
+        for t in range(n_rounds):
+            mask, weights, _ = ref.schedule(ref.sampler(t))
+            recs = [out[i]["rounds"][t] for out, _ in per_rank]
+            for r, rec in enumerate(recs):
+                if not (np.array_equal(rec["mask"], mask)
+                        and np.array_equal(rec["weights"], weights)):
+                    raise AssertionError(
+                        f"mesh {algorithm}/{impl} round {t} rank {r}: mask "
+                        f"{rec['mask']} weights {rec['weights']}, the "
+                        f"stacked Trainer's {mask} {weights}")
+                want = ((1 + 4 * 9, 0, 0, per_rank[r][0][i]["wire_want"])
+                        if impl == "ring" else (0, 1, 0, 0))
+                if rec["counts"] != want:
+                    raise AssertionError(
+                        f"mesh {algorithm}/{impl} round {t} rank {r}: "
+                        f"(ring_accum, wavg, trimmed_wavg, wire bytes) "
+                        f"{rec['counts']}, expected {want}")
+                if not all(np.isfinite(v) for v in rec["metrics"].values()):
+                    raise AssertionError(f"non-finite objectives "
+                                         f"{rec['metrics']}")
+            objective = recs[0]["metrics"].get("disc_objective")
+            print(f"mesh {algorithm:8s} {run[4]['schedule']:8s} "
+                  f"avg_impl={impl:6s} round {t}: "
+                  + (f"D {objective:+.5f}  " if objective is not None
+                     else "")
+                  + f"weights {weights.tolist()}  {max(r['secs'] for r in recs):.3f} s"
+                  f" (slowest rank), {recs[0]['counts'][3]} wire bytes a "
+                  f"rank")
+        del ref
+        for r, (out, _) in enumerate(per_rank):
+            if not (out[i]["finite"] and out[i]["moved"] > 0):
+                raise AssertionError(f"mesh {algorithm}/{impl} rank {r}: "
+                                     f"finite {out[i]['finite']}, disc "
+                                     f"moved {out[i]['moved']}")
+    for r, (out, _) in enumerate(per_rank):
+        got = out[0]["rounds"][0]["metrics"]
+        for key, want in first_round.items():
+            if abs(got[key] - want) > 1e-5 + 1e-4 * abs(want):
+                raise AssertionError(f"mesh rank {r} first round {key} "
+                                     f"{got[key]}, the stacked path's "
+                                     f"{want}")
+    print(f"mesh path's first round repeats the protocol path's first "
+          f"serial round on every rank: {per_rank[0][0][0]['rounds'][0]['metrics']}"
+          f" vs {first_round}")
+    totals = [c for _, c in per_rank]
+    launches = {"ring_accum": sum(c[0] for c in totals),
+                "wavg": sum(c[1] for c in totals),
+                "trimmed_wavg": sum(c[2] for c in totals)}
+    ring_rounds = sum(run[0] for run in MESH_RUNS if run[2] == "ring")
+    pallas_rounds = sum(run[0] for run in MESH_RUNS if run[2] == "pallas")
+    want = {"ring_accum": 10 * ring_rounds * 37, "wavg": 10 * pallas_rounds,
+            "trimmed_wavg": 0}
+    if launches != want:
+        raise AssertionError(f"mesh path launches {launches}, expected "
+                             f"{want}")
+    print(f"mesh path: {launches['ring_accum']} ring_accum, "
+          f"{launches['wavg']} wavg and 0 trimmed_wavg launches over the "
+          f"10 ranks")
+    return launches
+
+
 T_START = time.perf_counter()
 
 
@@ -981,6 +1441,7 @@ def main() -> int:
     from repro_torch.configs import get_arch_config
     from repro_torch.kernels.flash_attn import ops as flash_ops
     from repro_torch.kernels.flash_attn import ref as flash_ref
+    from repro_torch.kernels.ring_wavg import ops as ring_ops
     from repro_torch.kernels.robust_avg import ops as robust_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan import ref as ssd_ref
@@ -1001,10 +1462,10 @@ def main() -> int:
 
     # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    kernel_mods = (ops, robust_ops, ssd_ops, flash_ops)
+    kernel_mods = (ops, robust_ops, ssd_ops, flash_ops, ring_ops)
     with concurrent.futures.ThreadPoolExecutor(len(kernel_mods)) as pool:
         list(pool.map(lambda m: m.build(), kernel_mods))
-    print(f"built wavg, trimmed_wavg, ssd_scan and flash_attn in "
+    print(f"built wavg, trimmed_wavg, ssd_scan, flash_attn and ring_accum in "
           f"{time.perf_counter() - t0:.2f} s")
     stamp("build")
 
@@ -1013,6 +1474,7 @@ def main() -> int:
     trimmed = check_trimmed(torch, robust_ops)
     ssd = check_ssd(torch, ssd_ops, ssd_ref, ssm)
     flash = check_flash(torch, flash_ops, flash_ref)
+    ring = check_ring_accum(torch, ring_ops)
     stamp("kernels")
 
     # 4. small rounds, card vs CPU
@@ -1025,26 +1487,38 @@ def main() -> int:
         torch, flash_ops, "flash_attn", dataclasses.replace(
             get_arch_config("granite-3-2b").reduced(), n_kv_heads=2),
         520)  # s * s past the flash threshold, 4 query heads a kv head
+    check_small_mesh_rounds(torch)
     stamp("check")
 
-    # 5. train: the protocol's path, the hostile-worker path, then the
-    # two backbone-GAN paths; 6. one profiled round after each model's
-    # paths (the mamba2-130m trainer is freed before granite-3-2b's)
-    flash_ops.launches = 0
-    protocol_launches, trainer, setup = train(torch, ops, robust_ops)
+    # 5. train: the protocol's path, the hostile-worker path, the mesh
+    # path, then the two backbone-GAN paths; 6. one profiled round after
+    # each model's paths (the DCGAN trainer is freed before the mesh
+    # path, the mamba2-130m trainer before granite-3-2b's). This process
+    # never runs the ring: its ring_accum count stays 0.
+    flash_ops.launches = ring_ops.launches = 0
+    protocol_launches, trainer, setup, first_round = train(torch, ops,
+                                                           robust_ops)
     hostile = train_hostile(torch, ops, robust_ops, *setup)
-    del setup
     stamp("train: DCGAN protocol and hostile paths")
+    profile_round(torch, trainer, "DCGAN protocol")
+    del trainer
+    torch.cuda.empty_cache()
+    stamp("profile: DCGAN")
+    mesh = train_mesh(torch, setup[2], first_round)
+    del setup
+    import multiprocessing
+    print(f"after the mesh path: {len(multiprocessing.active_children())} "
+          f"child processes alive; host load average "
+          f"{os.getloadavg()[0]:.2f} (1 min), {os.cpu_count()} cores")
+    stamp("train: DCGAN mesh path")
     mamba, backbone_trainer = train_backbone(torch, ops, ssd_ops,
                                              "ssd_scan", MAMBA)
     stamp("train: mamba2-130m backbone path")
-    profile_round(torch, trainer, "DCGAN protocol")
-    del trainer
     profile_round(torch, backbone_trainer, "mamba2-130m backbone-GAN",
                   host_ops=False)
     del backbone_trainer
     torch.cuda.empty_cache()
-    stamp("profile: DCGAN and mamba2-130m")
+    stamp("profile: mamba2-130m")
     if flash_ops.launches != 0:
         raise AssertionError("flash_attn launched on the DCGAN or mamba2 "
                              "paths")
@@ -1056,22 +1530,26 @@ def main() -> int:
         raise AssertionError("trimmed_wavg launched on a backbone path")
     if ssd_ops.launches != ssd_before:
         raise AssertionError("ssd_scan launched on the granite-3-2b path")
+    if ring_ops.launches != 0:
+        raise AssertionError("ring_accum launched outside the mesh path")
     by_path = {"wavg": {"protocol": protocol_launches,
-                        "hostile": hostile["wavg"], "mamba2": mamba["wavg"],
-                        "granite": granite["wavg"]},
-               "trimmed_wavg": {"hostile": hostile["trimmed_wavg"]},
+                        "hostile": hostile["wavg"], "mesh": mesh["wavg"],
+                        "mamba2": mamba["wavg"], "granite": granite["wavg"]},
+               "trimmed_wavg": {"hostile": hostile["trimmed_wavg"],
+                                "mesh": mesh["trimmed_wavg"]},
                "ssd_scan": {"mamba2": mamba["ssd_scan"]},
-               "flash_attn": {"granite": granite["flash_attn"]}}
-    for entry in (wavg, trimmed, ssd, flash):
-        paths = {"protocol": 0, "hostile": 0, "mamba2": 0, "granite": 0,
-                 **by_path[entry["name"]]}
+               "flash_attn": {"granite": granite["flash_attn"]},
+               "ring_accum": {"mesh": mesh["ring_accum"]}}
+    for entry in (wavg, trimmed, ssd, flash, ring):
+        paths = {"protocol": 0, "hostile": 0, "mesh": 0, "mamba2": 0,
+                 "granite": 0, **by_path[entry["name"]]}
         entry["launches"] = sum(paths.values())
         entry["launches_by_path"] = paths
     profile_round(torch, backbone_trainer, "granite-3-2b backbone-GAN",
                   host_ops=False)
     stamp("profile: granite-3-2b")
 
-    print(json.dumps({"kernels": [wavg, trimmed, ssd, flash]}))
+    print(json.dumps({"kernels": [wavg, trimmed, ssd, flash, ring]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

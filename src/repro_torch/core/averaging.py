@@ -23,13 +23,23 @@ payload with a robust method of `repro_torch.kernels.robust_avg` and the
 RAW weights (0 = dropped worker) — again one kernel launch per round:
 the trimmed_wavg kernel for "trimmed_mean", the wavg kernel with
 effective weights for "norm_clip" and "krum".
+
+THE MESH LAYOUT (`weighted_average_psum`): every rank of a
+`torch.distributed` group holds ITS worker's parameters and weight, and
+Algorithm 2 is an explicit collective over the group, as in the JAX
+package's shard_map path: a per-leaf all-reduce (``impl="jnp"``), one
+all-gather of the flat payload reduced by ONE wavg (or robust) kernel
+launch (``impl="pallas"``), or the chunked ring with the payload encoded
+on the wire (``impl="ring"``, `repro_torch.kernels.ring_wavg`).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.ring_wavg import ops as ring_ops
 from repro_torch.kernels.robust_avg import ops as robust_ops
 from repro_torch.kernels.wavg import ops as wavg_ops
+from repro_torch.launch import mesh
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -46,15 +56,22 @@ def flatten_stacked(stacked_params):
     return torch.cat([x.reshape(k, -1).float() for x in leaves], dim=1)
 
 
-def unflatten_row(flat, like_stacked):
-    """Inverse of `flatten_stacked` for one (N,) row: a tree shaped like
-    one slice of `like_stacked`, in its dtypes."""
+def _unflatten(flat, like):
+    """Inverse of flattening one tree: the (N,) payload as a tree shaped
+    like `like` (unstacked), in its dtypes."""
     out, off = [], 0
-    for x in tree_leaves(like_stacked):
-        size = x[0].numel()
-        out.append(flat[off:off + size].reshape(x.shape[1:]).to(x.dtype))
-        off += size
-    return tree_unflatten(like_stacked, out)
+    for x in tree_leaves(like):
+        out.append(flat[off:off + x.numel()].reshape(x.shape).to(x.dtype))
+        off += x.numel()
+    return tree_unflatten(like, out)
+
+
+def _keep_fallback(avg, fallback, total):
+    """`fallback` where no worker survived (total weight zero)."""
+    if fallback is None:
+        return avg
+    return tree_map(lambda a, f: torch.where(total > 0, a, f.to(a.dtype)),
+                    avg, fallback)
 
 
 def weighted_average(stacked_params, weights, *, robust=None,
@@ -72,12 +89,72 @@ def weighted_average(stacked_params, weights, *, robust=None,
         avg_flat = robust_ops.robust_average(flat, weights.float(), robust)
     else:
         avg_flat = wavg_ops.weighted_average(flat, _normalized(weights))
-    avg = unflatten_row(avg_flat, stacked_params)
-    if fallback is None:
-        return avg
-    total = weights.float().sum()
-    return tree_map(lambda a, f: torch.where(total > 0, a, f.to(a.dtype)),
-                    avg, fallback)
+    avg = _unflatten(avg_flat, tree_map(lambda x: x[0], stacked_params))
+    return _keep_fallback(avg, fallback, weights.float().sum())
+
+
+def weighted_average_psum(local_params, local_weight, *, group=None,
+                          impl: str = "jnp", robust=None, uniforms=None,
+                          quantize_bits: int = 32, fallback=None,
+                          weights=None):
+    """The mesh layout's Algorithm 2: every rank of `group` (the default
+    group when None) holds ITS worker's parameters and (0-dim) weight;
+    returns the weighted average on every rank. Port of
+    `repro.core.averaging.weighted_average_psum`.
+
+    impl="jnp"    - a per-leaf all-reduce of x * w, and one of w.
+    impl="pallas" - the local tree flattened (leaf order of
+        `repro_torch.tree`) into ONE f32 payload, all-gathered into
+        (K, N) with the (K,) weights, and reduced by ONE wavg launch.
+    A non-None `robust` (a `RobustConfig`) takes the same flat path and
+        reduces with the robust method and the RAW gathered weights.
+    impl="ring"   - the ring collective (`kernels.ring_wavg`): k-1
+        chunked hops with dequantize-and-accumulate in the ring_accum
+        kernel. With `quantize_bits` < 32 the payload is quantized with
+        this rank's `uniforms` (N,) and travels encoded. It does not
+        compose with `robust`.
+
+    `fallback` (local-params-shaped) is returned when the total weight is
+    zero: every impl keeps the previous global on a no-survivor round.
+    `weights`: the group's (K,) weights in rank order, when the caller
+    has gathered them already; None gathers them here.
+    """
+    if impl == "ring":
+        if robust is not None:
+            raise ValueError(
+                "impl='ring' does not compose with robust reducers; "
+                "robust aggregation stays on the flat gather path")
+        return ring_ops.ring_average_psum(
+            local_params, local_weight, group=group, uniforms=uniforms,
+            bits=quantize_bits, fallback=fallback, weights=weights)
+
+    leaves = tree_leaves(local_params)
+    if not leaves:
+        return local_params
+    w_k = torch.as_tensor(local_weight, dtype=torch.float32,
+                          device=leaves[0].device)
+    if impl == "pallas" or robust is not None:
+        flat = torch.cat([x.reshape(-1).float() for x in leaves])
+        stacked = mesh.all_gather(flat, group)                  # (K, N)
+        w_full = (mesh.all_gather(w_k.reshape(1), group).reshape(-1)
+                  if weights is None else weights)
+        if robust is not None:
+            avg_flat = robust_ops.robust_average(stacked, w_full, robust)
+        else:
+            avg_flat = wavg_ops.weighted_average(stacked,
+                                                 _normalized(w_full))
+        return _keep_fallback(_unflatten(avg_flat, local_params), fallback,
+                              w_full.sum())
+
+    if impl != "jnp":
+        raise ValueError(f"unknown weighted_average_psum impl {impl!r}")
+    total = (mesh.all_reduce_sum(w_k, group) if weights is None
+             else weights.sum())
+    avg = tree_map(
+        lambda x: (mesh.all_reduce_sum(x.float() * w_k, group)
+                   / torch.clamp(total, min=1e-12)).to(x.dtype),
+        local_params)
+    return _keep_fallback(avg, fallback, total)
 
 
 def broadcast_like(params, n: int):

@@ -2,34 +2,50 @@
 the wireless channel simulator, wall-clock accounting, and periodic
 evaluation — the paper's experimental harness (Figs 3-6).
 
-Port of `repro.core.engine.Trainer` for the slices that run on one
-GPU: algorithms "proposed" and "fedgan", layout "stacked" (the K
-devices stacked on one card) and the host driver (one round per call,
-numpy scheduling and channel state, as in the JAX package's host
-driver, whose masks, weights and wallclock this one matches bit for
-bit), with the hostile-worker regime: fault programs (`faults=`) and
-robust reducers (`reducer=`). Every other choice of the JAX Trainer —
-the centralized baseline, the fused driver, the mesh layout, tensor
-parallelism, microbatching — raises a ValueError.
+Port of `repro.core.engine.Trainer`: algorithms "proposed" and
+"fedgan" under the host driver (one round per call, numpy scheduling and
+channel state, as in the JAX package's host driver, whose masks, weights
+and wallclock this one matches bit for bit), with the hostile-worker
+regime: fault programs (`faults=`) and robust reducers (`reducer=`), on
+two layouts:
+
+  layout="stacked" - the K devices stacked on one card.
+  layout="mesh"    - one rank of a `torch.distributed` group per device
+      (`repro_torch.launch.mesh.spawn` starts them; `core/shard_round.py`
+      runs the round), at tp=1. Every rank builds its own Trainer once
+      the group exists and runs the same host driver from the same seeded
+      streams, so masks, weights and history agree on every rank and with
+      a stacked Trainer of the same seed. `avg_impl` picks Algorithm 2's
+      collective: "pallas" (flat all-gather, wavg kernel), "jnp" (per-leaf
+      all-reduce) or "ring" (the chunked ring, ring_accum kernel).
+
+Every other choice of the JAX Trainer — the centralized baseline, the
+fused driver, tensor parallelism, microbatching — raises a ValueError.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ProtocolConfig
 from repro_torch.core import faults as faults_lib
-from repro_torch.core import fedgan, protocol
+from repro_torch.core import fedgan, protocol, shard_round
 from repro_torch.core.channel import (ChannelConfig, ChannelSimulator,
                                       round_wallclock)
 from repro_torch.core.scheduling import SchedulerState, schedule_round
 from repro_torch.device import resolve_device
 from repro_torch.kernels.robust_avg.ops import ROBUST_METHODS, RobustConfig
+from repro_torch.tree import tree_index
 
 ALGORITHMS = ("proposed", "fedgan")
+LAYOUTS = ("stacked", "mesh")
+# Algorithm-2 collectives of the mesh layout (core/averaging.py).
+MESH_AVG_IMPLS = ("pallas", "jnp", "ring")
 
 
 @dataclasses.dataclass
@@ -51,14 +67,44 @@ def _check_scope(algorithm, driver, layout, tp, pcfg):
     if driver not in ("auto", "host"):
         raise ValueError(f"driver={driver!r} is not ported; the port "
                          f"runs the host driver ('host' or 'auto')")
-    if layout != "stacked":
+    if layout not in LAYOUTS:
         raise ValueError(f"layout={layout!r} is not ported; the port "
-                         f"runs layout='stacked'")
+                         f"runs {LAYOUTS}")
     if tp != 1:
         raise ValueError(f"tp={tp} is not ported; the port runs tp=1")
     if pcfg.micro_batch_d is not None or pcfg.micro_batch_g is not None:
         raise ValueError("micro_batch_d/micro_batch_g are not ported; "
                          "leave them None")
+
+
+def _check_avg_impl(avg_impl, layout, tp, faults, reducer):
+    """The JAX Trainer's checks of `avg_impl`."""
+    if avg_impl not in MESH_AVG_IMPLS:
+        raise ValueError(f"unknown avg_impl {avg_impl!r} "
+                         f"(have {MESH_AVG_IMPLS})")
+    if avg_impl != "pallas" and layout != "mesh":
+        raise ValueError(
+            f"avg_impl={avg_impl!r} selects the mesh layout's "
+            f"Algorithm-2 collective; layout={layout!r} has no "
+            f"explicit collective (use layout='mesh' or the default "
+            f"avg_impl='pallas')")
+    shard_round.check_faults_tp(faults, reducer, tp)
+    shard_round.check_ring_support(avg_impl, tp, faults, reducer)
+
+
+def _mesh_rank(group, n_devices):
+    """This process's rank in the mesh layout's group."""
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(
+            "layout='mesh' runs inside a torch.distributed process group, "
+            "one rank per device (start the ranks with "
+            "repro_torch.launch.mesh.spawn)")
+    world = dist.get_world_size(group)
+    if world != n_devices:
+        raise ValueError(f"layout='mesh' needs one rank per device: the "
+                         f"group has {world} ranks for pcfg.n_devices="
+                         f"{n_devices}")
+    return dist.get_rank(group)
 
 
 def _check_faults(faults, reducer, pcfg):
@@ -90,6 +136,10 @@ class Trainer:
     seed: seeds the initial parameters and every round's draws.
     faults: optional `faults.FaultConfig` (hostile workers); reducer:
     "mean", a robust method name or a `RobustConfig`.
+    layout: "stacked", or "mesh" inside a process group of
+    pcfg.n_devices ranks (`group`, the default group when None), where
+    the rank keeps its own row of `data_stacked` and its own optimizer
+    states; avg_impl: the mesh layout's Algorithm-2 collective.
     sampler: optional t -> `protocol.RoundDraws` replacing the seeded
     `protocol.DrawSampler` (tests feed the JAX package's draws).
     fid_fn(gen_params, generator) is called on evaluation rounds with a
@@ -102,26 +152,34 @@ class Trainer:
                  channel_cfg: Optional[ChannelConfig] = None,
                  disc_step_flops: float = 1e9, gen_step_flops: float = 1e9,
                  driver: str = "auto", layout: str = "stacked", tp: int = 1,
-                 faults=None, reducer=None,
+                 faults=None, reducer=None, avg_impl: str = "pallas",
+                 group=None,
                  partition: Optional[str] = None, labels=None,
                  partition_alpha: float = 0.5, partition_seed: int = 0,
                  sampler: Optional[Callable] = None, device=None):
         _check_scope(algorithm, driver, layout, tp, pcfg)
         reducer = _check_faults(faults, reducer, pcfg)
+        _check_avg_impl(avg_impl, layout, tp, faults, reducer)
+        self.layout, self.avg_impl = layout, avg_impl
+        self.rank = (_mesh_rank(group, pcfg.n_devices) if layout == "mesh"
+                     else None)
         self.device = resolve_device(device)
         if partition is not None:
             from repro_torch.data.partition import partition as partition_fn
             data_stacked = partition_fn(
                 np.asarray(data_stacked), pcfg.n_devices, labels=labels,
                 kind=partition, alpha=partition_alpha, seed=partition_seed)
+        if len(data_stacked) != pcfg.n_devices:
+            raise ValueError(f"data has {len(data_stacked)} shards for "
+                             f"pcfg.n_devices={pcfg.n_devices}")
+        if self.rank is not None:       # the mesh rank keeps its own shard
+            data_stacked = data_stacked[self.rank]
         # Integer shards (token ids) stay integers, as in the JAX Trainer;
         # everything else is float32.
         data = torch.as_tensor(data_stacked)
         self.data = data.to(self.device, torch.int64
                             if not data.is_floating_point() else torch.float32)
-        if self.data.shape[0] != pcfg.n_devices:
-            raise ValueError(f"data has {self.data.shape[0]} shards for "
-                             f"pcfg.n_devices={pcfg.n_devices}")
+        n_local = self.data.shape[0 if self.rank is not None else 1]
 
         self.spec, self.pcfg, self.seed = spec, pcfg, seed
         self.algorithm = algorithm
@@ -138,14 +196,25 @@ class Trainer:
         self.disc_step_flops = disc_step_flops
         self.gen_step_flops = gen_step_flops
 
-        make_state, payload_fn, self._round_fn = (
-            (fedgan.make_fedgan_state,
-             lambda st: {"gen": st["gen"], "disc": st["disc"]},
-             fedgan.fedgan_round) if self._fedgan else
-            (protocol.make_train_state, lambda st: st["disc"],
-             protocol.gan_round))
-        self.state = make_state(init_fn, pcfg, self.n_devices, seed=seed,
-                                device=self.device)
+        make_state, payload_fn, stacked_keys, round_fn, mesh_fn = (
+            (fedgan.make_fedgan_state, shard_round.FEDGAN_PAYLOAD,
+             shard_round.FEDGAN_STACKED_KEYS, fedgan.fedgan_round,
+             shard_round.fedgan_mesh_round) if self._fedgan else
+            (protocol.make_train_state, shard_round.PROPOSED_PAYLOAD,
+             shard_round.PROPOSED_STACKED_KEYS, protocol.gan_round,
+             shard_round.mesh_round))
+        if self.rank is None:
+            self._round_fn = round_fn
+            self.state = make_state(init_fn, pcfg, self.n_devices,
+                                    seed=seed, device=self.device)
+        else:
+            self._round_fn = functools.partial(mesh_fn, group=group,
+                                               avg_impl=avg_impl)
+            # one worker's optimizer states, unstacked
+            state = make_state(init_fn, pcfg, 1, seed=seed,
+                               device=self.device)
+            self.state = {k: tree_index(v, 0) if k in stacked_keys else v
+                          for k, v in state.items()}
         # The free-riders' stale-upload cache rides in the state.
         self.state = faults_lib.attach_fault_state(self.state, faults,
                                                    payload_fn)
@@ -154,13 +223,39 @@ class Trainer:
         self._uplink_bits = protocol.uplink_payload_bits(
             self.state, pcfg, fedgan=self._fedgan)
         self.sampler = sampler or protocol.DrawSampler(
-            spec, pcfg, seed=seed, n_local=self.data.shape[1],
+            spec, pcfg, seed=seed, n_local=n_local,
             n_params=self._disc_nparams + (
                 self._gen_nparams if self._fedgan else 0),
             device=self.device, faults=faults)
         self.history: list[RoundRecord] = []
         self._clock = 0.0
         self._round_index = 0
+
+    def schedule(self, draws: protocol.RoundDraws):
+        """Step 1 of the next round, on the host (numpy): the channel
+        state, the scheduling mask, the round's timing and Algorithm 2's
+        weights. Fault dropout knocks scheduled devices out BEFORE timing,
+        from the round's host uniforms; stragglers and free-riders scale
+        the local compute time. Advances the channel and scheduler state;
+        `run` calls it once a round. Returns (mask, weights, timing)."""
+        pcfg = self.pcfg
+        rates = self.channel.uplink_rates(self.sched.n_scheduled)
+        mask = schedule_round(self.sched, rates, self.rng)
+        compute_mult = None
+        if self._fault_prog is not None:
+            mask = mask & ~self._fault_prog.dropout_mask(draws.drop_u)
+            compute_mult = self._fault_prog.compute_mult_np
+        timing = self.channel.round_timing(
+            mask=mask, disc_params=self._disc_nparams,
+            gen_params=self._gen_nparams,
+            disc_step_flops=self.disc_step_flops,
+            gen_step_flops=self.gen_step_flops,
+            n_d=pcfg.n_d, n_g=pcfg.n_g, fedgan=self._fedgan,
+            uplink_bits=self._uplink_bits, compute_mult=compute_mult)
+        active = mask & ~timing.stragglers
+        weights = np.where(active, float(pcfg.sample_size),
+                           0.0).astype(np.float32)
+        return mask, weights, timing
 
     def run(self, n_rounds: int, *, eval_every: int = 0,
             fid_fn: Optional[Callable] = None, verbose: bool = False):
@@ -169,32 +264,13 @@ class Trainer:
         for _ in range(n_rounds):
             t = self._round_index
             draws = self.sampler(t)
+            mask, weights, timing = self.schedule(draws)
 
-            # Step 1: schedule + channel state (numpy, host). Fault
-            # dropout knocks scheduled devices out BEFORE timing, from
-            # the round's host uniforms; stragglers and free-riders scale
-            # the local compute time.
-            rates = self.channel.uplink_rates(self.sched.n_scheduled)
-            mask = schedule_round(self.sched, rates, self.rng)
-            compute_mult = None
-            if self._fault_prog is not None:
-                mask = mask & ~self._fault_prog.dropout_mask(draws.drop_u)
-                compute_mult = self._fault_prog.compute_mult_np
-            timing = self.channel.round_timing(
-                mask=mask, disc_params=self._disc_nparams,
-                gen_params=self._gen_nparams,
-                disc_step_flops=self.disc_step_flops,
-                gen_step_flops=self.gen_step_flops,
-                n_d=pcfg.n_d, n_g=pcfg.n_g, fedgan=self._fedgan,
-                uplink_bits=self._uplink_bits, compute_mult=compute_mult)
-            active = mask & ~timing.stragglers
-            weights = np.where(active, float(pcfg.sample_size),
-                               0.0).astype(np.float32)
-
-            # Steps 2-5 on the device.
+            # Steps 2-5 on the device; a mesh rank passes its own weight.
+            w = torch.from_numpy(weights).to(self.device)
             self.state, metrics = self._round_fn(
                 self.spec, pcfg, self.state, self.data,
-                torch.from_numpy(weights).to(self.device), draws,
+                w if self.rank is None else w[self.rank], draws,
                 faults=self.faults, reducer=self.reducer)
 
             wall = round_wallclock(timing, mask, schedule=pcfg.schedule,

@@ -135,6 +135,17 @@ def byzantine_noise(normals, payload, scale: float):
     return tree_unflatten(payload, out)
 
 
+def _check_byz_normals(cfg: FaultConfig, payload, byz_normals):
+    """The byzantine devices' normals must cover one device's payload."""
+    n = sum(x.numel() for x in tree_leaves(payload))
+    if byz_normals is None or tuple(byz_normals.shape) != (cfg.n_byzantine,
+                                                           n):
+        raise ValueError(
+            f"{cfg.n_byzantine} byzantine devices need "
+            f"({cfg.n_byzantine}, {n}) normals for their payload; got "
+            f"{None if byz_normals is None else tuple(byz_normals.shape)}")
+
+
 def corrupt_upload(prog: FaultProgram, payload_stacked, byz_normals,
                    stale=None):
     """The devices' ACTUAL uploads under the fault program, for a payload
@@ -148,14 +159,8 @@ def corrupt_upload(prog: FaultProgram, payload_stacked, byz_normals,
     if cfg.n_free_riders > 0 and stale is not None:
         replace.append((prog.free_rider_idx, stale))
     if cfg.n_byzantine > 0:
-        n = sum(x[0].numel() for x in tree_leaves(payload_stacked))
-        if (byz_normals is None
-                or tuple(byz_normals.shape) != (cfg.n_byzantine, n)):
-            raise ValueError(
-                f"{cfg.n_byzantine} byzantine devices need "
-                f"({cfg.n_byzantine}, {n}) normals for their payload; got "
-                f"{None if byz_normals is None else tuple(byz_normals.shape)}")
         one = tree_map(lambda x: x[0], payload_stacked)
+        _check_byz_normals(cfg, one, byz_normals)
         replace.append((prog.byzantine_idx,
                         byzantine_noise(byz_normals, one, cfg.byz_scale)))
     if not replace:
@@ -168,6 +173,25 @@ def corrupt_upload(prog: FaultProgram, payload_stacked, byz_normals,
         return x
 
     return tree_map(corrupt_leaf, payload_stacked, *(t for _, t in replace))
+
+
+def corrupt_upload_rank(prog: FaultProgram, rank: int, payload,
+                        byz_normals, stale=None):
+    """Worker `rank`'s ACTUAL upload under the fault program, for its own
+    (unstacked) payload tree: the mesh layout's per-rank form of
+    `corrupt_upload`, with the same values. A free-rider uploads the
+    `stale` cached global, a byzantine worker its row of `byz_normals`
+    (n_byzantine, N) as scaled noise; everyone else `payload`."""
+    cfg = prog.cfg
+    if cfg.n_byzantine > 0:
+        _check_byz_normals(cfg, payload, byz_normals)
+    if cfg.n_free_riders > 0 and stale is not None \
+            and prog.free_rider_np[rank]:
+        return tree_map(lambda p, s: s.to(p.dtype), payload, stale)
+    if prog.byzantine_np[rank]:
+        row = prog.byzantine_idx.index(rank)
+        return byzantine_noise(byz_normals[row], payload, cfg.byz_scale)
+    return payload
 
 
 def attach_fault_state(state, faults: FaultConfig | None, payload_fn):

@@ -1,0 +1,168 @@
+"""The mesh layout's process side: one `torch.distributed` rank per paper
+worker. Port of the process-group part of `repro.launch.mesh` (where a
+JAX mesh axis holds the workers, here a process group does).
+
+`spawn` starts the ranks and collects what each returns; the collective
+helpers below run an all-gather or an all-reduce on any group. On a gloo
+group (ranks that share a card, or the CPU) the wire is host memory, so
+the helpers stage device tensors through the host; on an NCCL group the
+tensors stay on their cards.
+"""
+from __future__ import annotations
+
+import datetime
+import queue as queue_mod
+import socket
+import time
+import traceback
+
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from repro_torch.device import resolve_device
+
+
+def wire_on_host(group=None) -> bool:
+    """True when the group's backend sends from host memory (gloo)."""
+    return dist.get_backend(group) == "gloo"
+
+
+def global_rank(group, rank: int) -> int:
+    """The global rank of `group`'s rank `rank` (the peer P2P ops take)."""
+    return rank if group is None else dist.get_global_rank(group, rank)
+
+
+def all_gather(t, group=None):
+    """Every rank's `t`, stacked on a new leading axis in rank order, on
+    `t`'s device."""
+    src = t.detach().contiguous()
+    if wire_on_host(group):
+        src = src.cpu()
+    out = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(out, src, group=group)
+    return torch.stack(out).to(t.device)
+
+
+def all_reduce_sum(t, group=None):
+    """The sum of every rank's `t`, on `t`'s device."""
+    buf = t.detach().to("cpu" if wire_on_host(group) else t.device,
+                        copy=True)
+    dist.all_reduce(buf, group=group)
+    return buf.to(t.device)
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _to_host(value):
+    """Tensors in a (nested) result -> numpy arrays, for the queue."""
+    if torch.is_tensor(value):
+        return value.detach().cpu().numpy()
+    if isinstance(value, dict):
+        return {k: _to_host(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return type(value)(_to_host(v) for v in value)
+    return value
+
+
+def _rank_main(rank, world_size, fn, device_type, backend, init_method,
+               timeout_s, queue):
+    try:
+        if device_type == "cuda":
+            device = torch.device("cuda", rank % torch.cuda.device_count())
+            torch.cuda.set_device(device)
+        else:
+            device = torch.device("cpu")
+        dist.init_process_group(
+            backend, init_method=init_method, world_size=world_size,
+            rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
+        try:
+            result = _to_host(fn(rank, world_size, device))
+        finally:
+            dist.destroy_process_group()
+        queue.put((rank, True, result))
+    except BaseException:
+        queue.put((rank, False, traceback.format_exc()))
+        raise
+
+
+def spawn(fn, world_size: int, *, device="cuda", backend=None,
+          init_method=None, timeout_s: float = 300.0):
+    """Run `fn(rank, world_size, device)` on `world_size` ranks, each a
+    process started with `torch.multiprocessing`'s "spawn" method, inside
+    a process group; returns their results in rank order, with tensors
+    turned into numpy arrays. `fn` must be picklable (a module-level
+    function, or a `functools.partial` of one).
+
+    device: "cuda" (the default; raises without CUDA) or "cpu". Rank r
+    runs on cuda:{r % device_count}.
+    backend: None means "nccl" on CUDA and "gloo" on the CPU. NCCL needs a
+    card per rank: ranks that share a card need backend="gloo".
+    init_method: None means tcp://localhost on a free port.
+    timeout_s: bounds `init_process_group`, every collective, and the
+    wait for each rank's result.
+
+    A rank that raises makes `spawn` stop the other ranks and raise a
+    RuntimeError that carries the rank's traceback.
+    """
+    dev = resolve_device(device)
+    if backend is None:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+    if backend == "nccl":
+        if dev.type != "cuda":
+            raise ValueError("backend='nccl' runs on CUDA devices")
+        if world_size > torch.cuda.device_count():
+            raise ValueError(
+                f"backend='nccl' needs a card per rank: {world_size} ranks "
+                f"on {torch.cuda.device_count()} card(s); ranks that share "
+                f"a card need backend='gloo'")
+    if init_method is None:
+        init_method = f"tcp://localhost:{_free_port()}"
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=_rank_main,
+                         args=(rank, world_size, fn, dev.type, backend,
+                               init_method, timeout_s, queue))
+             for rank in range(world_size)]
+    for p in procs:
+        p.start()
+    results, got, finished = [None] * world_size, set(), False
+    deadline, seen_dead = time.monotonic() + timeout_s, False
+    try:
+        while len(got) < world_size:
+            try:
+                rank, ok, value = queue.get(timeout=1.0)
+            except queue_mod.Empty:
+                # a rank that died without a result (its last message
+                # gets one more second to arrive), or one that hangs
+                dead = [(r, p.exitcode) for r, p in enumerate(procs)
+                        if r not in got and p.exitcode not in (None, 0)]
+                if (dead and seen_dead) or time.monotonic() > deadline:
+                    raise RuntimeError(
+                        f"spawn: ranks {sorted(set(range(world_size)) - got)}"
+                        f" gave no result (exited: {dead}; limit "
+                        f"{timeout_s} s)") from None
+                seen_dead = bool(dead)
+                continue
+            if not ok:
+                raise RuntimeError(f"spawn: rank {rank} failed:\n{value}")
+            results[rank] = value
+            got.add(rank)
+        finished = True
+    finally:
+        for p in procs:
+            if not finished:
+                p.terminate()
+            p.join(timeout=timeout_s)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return results
+
+
+__all__ = ["spawn", "all_gather", "all_reduce_sum", "wire_on_host",
+           "global_rank"]

@@ -147,7 +147,7 @@ def test_entry_points_need_a_device_or_an_explicit_cpu():
 
 @pytest.mark.parametrize("kw", [
     dict(algorithm="centralized"),
-    dict(driver="fused"), dict(layout="mesh"), dict(tp=2),
+    dict(driver="fused"), dict(layout="mesh", tp=2), dict(tp=2),
     dict(pcfg=dict(micro_batch_d=2)), dict(pcfg=dict(micro_batch_g=2)),
 ], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
 def test_trainer_refuses_what_is_not_ported(kw):

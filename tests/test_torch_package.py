@@ -67,16 +67,18 @@ def test_chip_smoke_fails_without_a_gpu():
 
 
 def test_kernel_build_without_nvcc_raises():
-    """Every kernel's build: wavg, trimmed_wavg, ssd_scan, flash_attn."""
+    """Every kernel's build: wavg, trimmed_wavg, ssd_scan, flash_attn,
+    ring_accum."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attn import ops as flash_ops
+    from repro_torch.kernels.ring_wavg import ops as ring_ops
     from repro_torch.kernels.robust_avg import ops as robust_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.wavg import ops
     try:
         _build.nvcc_path()
     except RuntimeError:
-        for kernel_ops in (ops, robust_ops, ssd_ops, flash_ops):
+        for kernel_ops in (ops, robust_ops, ssd_ops, flash_ops, ring_ops):
             with pytest.raises(RuntimeError, match="nvcc not found"):
                 kernel_ops.build()
     else:
