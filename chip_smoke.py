@@ -14,8 +14,15 @@ Phases, in order; any failure exits non-zero:
               paths' shapes and at edge shapes; timed with CUDA events
               beside its bound and, where one exists, a PyTorch library
               call; the trimmed mean keeps the honest rows' range;
-              ring_accum for the three wire dtypes, in the ring's chunks
-              at non-zero row offsets, at the int16 extremes
+              ssd_scan at 26 shapes (one chunk, 128 chunks, ragged last
+              chunks, groups, p 32-128, n 16-160, bf16 x at the main
+              shape), its
+              four CUDA kernels' device times, its f32 SIMT and f32-
+              accurate tensor-core bounds (flash_attn's too); ring_accum
+              for the three wire dtypes, in the ring's chunks at non-zero
+              row offsets, at the int16 extremes, through the ring's
+              RowAccumulator, whose launch path is timed at 1,356 and 339
+              rows beside acc.addcmul_ on the same slices
   4. check    small rounds on the card (kernels) and on the CPU (plain
               versions) from the same draws: one plain protocol round,
               one protocol round and one FedGAN round under a fault
@@ -57,8 +64,10 @@ Phases, in order; any failure exits non-zero:
   6. profile  one more round of the DCGAN protocol (after 5b; that trainer
               is then freed), of the mamba2-130m backbone-GAN (after 5c;
               freed too) and of the granite-3-2b backbone-GAN (after 5d)
-              under torch.profiler: device-busy share and the kernels
-              that take the most device time
+              under torch.profiler: device-busy share, the kernels that
+              take the most device time, and the device time of the
+              SSDScan and FlashAttention backwards (record_function
+              ranges)
 The last two lines are the `kernels` JSON line and
 {"ok": true, "device": {...}}.
 """
@@ -77,9 +86,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 # NVIDIA H100 SXM data sheet: HBM bandwidth and the float32 rate outside
-# the tensor cores.
+# the tensor cores ...
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+# ... and the TF32 tensor-core rate: a float32-accurate product takes
+# three TF32 passes (the 3xTF32 split of ssd_scan.cu)
+TF32_FLOPS_PER_S = 495e12
+TF32X3_PASSES = 3
 
 RTOL, ATOL = 1e-5, 1e-6        # f32 sums of K terms in another order
 K_MAIN, N_MAIN = 10, 2_765_568  # Algorithm 2 on the DCGAN discriminator
@@ -96,6 +109,9 @@ TRIM_EDGE = (0, 1, 3)
 # b = m = 8 sequences of 512 tokens, 24 heads of 64, one group of 128.
 SSD_MAIN = dict(b=8, s=512, h=24, p=64, g=1, n=128, chunk=128)
 SSD_ATOL, SSD_ATOL_BF16 = 1e-4, 0.05   # as tests/test_kernels.py
+# The four CUDA kernels of one scan (csrc/ssd_scan.cu)
+SSD_KERNELS = ("ssd_cb_kernel", "ssd_state_kernel", "ssd_prefix_kernel",
+               "ssd_out_kernel")
 # Causal GQA attention of the full-width granite-3-2b backbone-GAN: b = m
 # = 4 sequences of 1024 tokens, 32 heads of 64 over 8 kv heads; and
 # qwen3-1.7b's heads (16 of 128 over 8).
@@ -316,28 +332,34 @@ def ssd_inputs(torch, gen, b, s, h, p, g, n, *, x_dtype=None,
 def check_ssd(torch, ops, ref, ssm):
     """The ssd_scan kernel against its plain version (the sequential
     recurrence) at the main path's shape, with and without the final
-    state, and at edge shapes; timings of the kernel, the plain version
-    and the port's chunked torch scan at the main shape. Returns the
-    kernel's JSON entry (launches unset)."""
+    state, and at the edges of its design: one chunk, many chunks (s =
+    2048 at chunk 16 and 128), a ragged last chunk, two heads a group,
+    p = 32 and 128, bfloat16 x at the main shape; timings of the kernel,
+    the plain version and the port's chunked torch scan at the main
+    shape. Returns the kernel's JSON entry (launches unset)."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     edge = [dict(b=2, s=s, h=4, p=64, g=1, n=64, chunk=128)
             for s in (1, 100, 129, 512)]
     edge += [dict(b=2, s=200, h=4, p=64, g=1, n=64, chunk=c)
              for c in (16, 64, 128)]
+    edge += [dict(b=1, s=2048, h=2, p=64, g=1, n=128, chunk=c)
+             for c in (16, 128)]
     edge += [dict(b=2, s=160, h=4, p=64, g=g, n=64, chunk=128)
              for g in (1, 2)]
     edge += [dict(b=2, s=160, h=4, p=p, g=1, n=n, chunk=128)
              for p in (32, 64, 128) for n in (16, 64, 128)]
-    edge += [dict(b=1, s=300, h=4, p=64, g=2, n=128, chunk=128)]
+    edge += [dict(b=1, s=300, h=4, p=64, g=2, n=128, chunk=128),
+             dict(b=1, s=200, h=2, p=64, g=1, n=36, chunk=48),
+             dict(b=1, s=200, h=2, p=64, g=1, n=160, chunk=64)]
     cases = [(SSD_MAIN, dict(strided=True))] + [(c, {}) for c in edge]
     # bfloat16 x: B and C scaled by n ** -0.5 keep |y| below 8, where
     # bfloat16's spacing (<= 1/16) stays within the tolerance; y is
     # rounded to bfloat16 on both sides
     cases += [(dict(b=2, s=200, h=4, p=64, g=2, n=64, chunk=64),
                dict(x_dtype=torch.bfloat16, bc_scale=64 ** -0.5)),
-              (dict(SSD_MAIN, b=1), dict(x_dtype=torch.bfloat16,
-                                         bc_scale=128 ** -0.5))]
-    max_err = {}
+              (SSD_MAIN, dict(x_dtype=torch.bfloat16, bc_scale=128 ** -0.5,
+                              strided=True))]
+    max_err, failed = {}, []
     for i, (shape, kw) in enumerate(cases):
         shape = dict(shape)
         chunk = shape.pop("chunk")
@@ -350,11 +372,18 @@ def check_ssd(torch, ops, ref, ssm):
         torch.cuda.synchronize()
         if y.dtype != args[0].dtype or st.dtype != torch.float32:
             raise AssertionError(f"ssd_scan dtypes {y.dtype}, {st.dtype}")
-        for got, want in ((y, y_plain), (y_only, y_plain), (st, st_plain)):
-            torch.testing.assert_close(got.float(), want.float(), rtol=0,
-                                       atol=atol)
-        max_err[i] = max(float((y.float() - y_plain.float()).abs().max()),
-                         float((st - st_plain).abs().max()))
+        max_err[i] = max(float((got.float() - want.float()).abs().max())
+                         for got, want in ((y, y_plain), (y_only, y_plain),
+                                           (st, st_plain)))
+        ok = max_err[i] <= atol      # False for NaN too
+        print(f"  ssd_scan {shape} chunk {chunk} {args[0].dtype}"
+              f"{' strided' if kw.get('strided') else ''}: max abs err "
+              f"{max_err[i]:.3e} (atol {atol}){'' if ok else '  FAILED'}")
+        if not ok:
+            failed.append(i)
+    if failed:
+        raise AssertionError(f"ssd_scan disagrees with its plain version at "
+                             f"cases {failed}")
     print(f"ssd_scan matches its plain version at {len(cases)} shapes, y "
           f"and final state (atol {SSD_ATOL} f32, {SSD_ATOL_BF16} bf16); "
           f"max abs err {max(max_err.values()):.3e}, at the main shape "
@@ -386,22 +415,30 @@ def check_ssd(torch, ops, ref, ssm):
                                     + 4 * chunk * n * p)
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     flops_ms = flops / F32_FLOPS_PER_S * 1e3
+    simt_ms = max(bytes_ms, flops_ms)
+    tc_ms = max(bytes_ms, TF32X3_PASSES * flops / TF32_FLOPS_PER_S * 1e3)
     print(f"ssd_scan b={b} s={s} h={h} p={p} g={g} n={n} chunk={chunk}: "
           f"kernel {kernel_ms:.4f} ms, plain (sequential) {plain_ms:.4f} ms, "
-          f"chunked torch scan {torch_ms:.4f} ms; bound "
-          f"{max(bytes_ms, flops_ms):.4f} ms ({n_bytes} B = "
-          f"{bytes_ms:.4f} ms, {flops} flop = {flops_ms:.4f} ms; the TPU "
-          f"kernel's algorithm {flops_tpu} flop = "
-          f"{flops_tpu / F32_FLOPS_PER_S * 1e3:.4f} ms); "
-          f"{flops / kernel_ms / 1e9:.3f} TFLOP/s")
+          f"chunked torch scan {torch_ms:.4f} ms; bounds: f32 SIMT "
+          f"{simt_ms:.4f} ms ({n_bytes} B = {bytes_ms:.4f} ms, {flops} flop "
+          f"= {flops_ms:.4f} ms), f32-accurate tensor core {tc_ms:.4f} ms "
+          f"(3 TF32 passes); the TPU kernel's algorithm {flops_tpu} flop = "
+          f"{flops_tpu / F32_FLOPS_PER_S * 1e3:.4f} ms; "
+          f"{flops / kernel_ms / 1e9:.3f} TFLOP/s, {tc_ms / kernel_ms:.3f} "
+          f"of the tensor-core bound")
+    by_kernel = kernel_device_ms(
+        torch, lambda *a: ops.ssd_scan(*a, chunk=chunk), sets, SSD_KERNELS)
+    print("ssd_scan's kernels, device time a launch (profiler): " + ", ".join(
+        f"{name} {'not seen' if ms is None else f'{ms:.4f} ms'}"
+        for name, ms in by_kernel.items()))
     return {"name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan/kernel.py:81",
             "launches": None, "max_abs_err": max_err[0],
-            "ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, flops_ms),
-            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
-            "library_ms": None, "chunked_torch_ms": torch_ms}
+            "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": tc_ms,
+            "bound_by": "bytes" if tc_ms == bytes_ms else "operations",
+            "library_ms": None, "bound_f32_simt_ms": simt_ms,
+            "chunked_torch_ms": torch_ms, "kernels_device_ms": by_kernel}
 
 
 def flash_inputs(torch, gen, b, s, h, kv, d, *, dtype=None, strided=False):
@@ -481,12 +518,15 @@ def check_flash(torch, ops, ref):
     flops = 4 * b * h * d * s * (s + 1) // 2
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     flops_ms = flops / F32_FLOPS_PER_S * 1e3
+    tc_ms = max(bytes_ms, TF32X3_PASSES * flops / TF32_FLOPS_PER_S * 1e3)
     print(f"flash_attn b={b} s={s} H={h} KV={kv} D={d} causal f32: kernel "
           f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
           f"{library_ms:.4f} ms; bound {max(bytes_ms, flops_ms):.4f} ms "
           f"({n_bytes} B = {bytes_ms:.4f} ms, {flops} flop = "
           f"{flops_ms:.4f} ms); {flops / kernel_ms / 1e9:.3f} TFLOP/s, "
-          f"{max(bytes_ms, flops_ms) / kernel_ms:.3f} of the bound")
+          f"{max(bytes_ms, flops_ms) / kernel_ms:.3f} of the bound; the "
+          f"f32-accurate tensor-core bound (3 TF32 passes) {tc_ms:.4f} ms, "
+          f"{tc_ms / kernel_ms:.3f} of it")
     return {"name": "flash_attn", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attn.cu",
             "replaces": "src/repro/kernels/flash_attn/kernel.py:83",
@@ -494,7 +534,7 @@ def check_flash(torch, ops, ref):
             "ms": kernel_ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, flops_ms),
             "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
-            "library_ms": library_ms}
+            "library_ms": library_ms, "bound_tf32x3_ms": tc_ms}
 
 
 def check_backbone_round_against_cpu(torch, kernel_ops, kernel, cfg, seq):
@@ -942,41 +982,78 @@ def train_backbone(torch, wavg_ops, kernel_ops, kernel, bb):
     return launches, trainer
 
 
-def profile_round(torch, trainer, label, *, host_ops=True):
+# The backwards that run plain torch code, each inside a named
+# torch.profiler.record_function range (the kernels' autograd Functions)
+BACKWARD_RANGES = ("SSDScan.backward", "FlashAttention.backward")
+
+
+def _merged(intervals):
+    """Sorted, disjoint (start, end) intervals covering `intervals`."""
+    out = []
+    for start, stop in sorted(intervals):
+        if out and start <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], stop)
+        else:
+            out.append([start, stop])
+    return out
+
+
+def _overlap_us(a, b):
+    """The length of the intersection of two merged interval lists."""
+    total, i, j = 0.0, 0, 0
+    while i < len(a) and j < len(b):
+        total += max(0.0, min(a[i][1], b[j][1]) - max(a[i][0], b[j][0]))
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def profile_round(torch, trainer, label):
     """Where a round's time goes: one more round of `trainer` under
     torch.profiler (after the main paths' launch counts were read), its
-    device-busy share and the kernels that take the most device time.
-    host_ops=False records the device's kernels only (a backbone round
-    issues ~250,000 of them, and the host-side events would multiply
-    the profiler's own work)."""
+    device-busy share, the kernels that take the most device time, and
+    the device time inside each of BACKWARD_RANGES. Host activity is
+    recorded too: the profiler puts a record_function range on the
+    device's timeline only then."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    activities = [ProfilerActivity.CUDA] + (
-        [ProfilerActivity.CPU] if host_ops else [])
-    with profile(activities=activities) as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         trainer.run(1)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    spans, by_name = [], {}
+    spans, by_name, ranges = [], {}, {name: [] for name in BACKWARD_RANGES}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            spans.append((e.time_range.start, e.time_range.end))
-            by_name[e.name] = (by_name.get(e.name, 0.0)
-                               + e.time_range.elapsed_us())
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        interval = (e.time_range.start, e.time_range.end)
+        if e.is_user_annotation:     # a range's span, not device work
+            if e.name in ranges:
+                ranges[e.name].append(interval)
+            continue
+        spans.append(interval)
+        by_name[e.name] = (by_name.get(e.name, 0.0)
+                           + e.time_range.elapsed_us())
     if not spans:
         print(f"profile of one {label} round: the profiler saw no device "
               f"events; device busy share not measured")
         return
-    busy_us, end = 0.0, float("-inf")
-    for start, stop in sorted(spans):      # union of kernel intervals
-        busy_us += max(0.0, stop - max(start, end))
-        end = max(end, stop)
+    busy = _merged(spans)
+    busy_us = sum(stop - start for start, stop in busy)
     print(f"profile of one {label} round (profiler on): {wall_s:.3f} s wall, "
           f"{busy_us / 1e6:.3f} s device busy "
           f"({busy_us / 1e6 / wall_s:.3f}), {len(spans)} device ops")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f"  {us / 1e3:9.3f} ms  {name[:100]}")
+    for name, intervals in ranges.items():
+        if intervals:
+            us = _overlap_us(busy, _merged(intervals))
+            print(f"  {name}: {us / 1e3:.3f} ms of device time in "
+                  f"{len(intervals)} calls, {us / busy_us:.3f} of device "
+                  f"busy")
 
 
 RING_TIMED = (1_356, 63_269, 169_997)  # the DCGAN, mamba2-130m, granite D
@@ -999,21 +1076,25 @@ def ring_inputs(torch, gen, nb, dtype):
     return acc, q, w / hi
 
 
-def kernel_device_ms(torch, fn, inputs, kernel_name, n=24):
-    """The mean device time of one launch of `kernel_name` over `n` calls
-    of `fn`, from torch.profiler's CUDA activity: at small shapes the
-    CUDA-event time of back-to-back calls is the host's launch rate, not
-    the kernel's. None when the profiler sees no such kernel."""
+def kernel_device_ms(torch, fn, inputs, kernel_names, n=24):
+    """{name: the mean device time of one launch of each kernel whose
+    name contains it} over `n` calls of `fn`, from torch.profiler's CUDA
+    activity: at small shapes the CUDA-event time of back-to-back calls
+    is the host's launch rate, not the kernel's. None for a name the
+    profiler did not see."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for i in range(n):
             fn(*inputs[i % len(inputs)])
         torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA
-          and kernel_name in e.name]
-    return sum(us) / len(us) / 1e3 if us else None
+    out = {}
+    for name in kernel_names:
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and name in e.name]
+        out[name] = sum(us) / len(us) / 1e3 if us else None
+    return out
 
 
 def ring_library(acc, q, coef):
@@ -1047,14 +1128,21 @@ def check_ring_accum(torch, ops):
                 if r1 < nb and not torch.equal(chunked[r1:], acc[r1:]):
                     raise AssertionError(f"ring_accum wrote past rows "
                                          f"[{r0}, {r1}) of {nb}")
+            # the ring's own path: one RowAccumulator over the whole
+            # tensors, one call a chunk
+            launched = acc.clone()
+            accumulate = ops.RowAccumulator(launched, q, coef)
+            for r0, r1 in ops._chunk_bounds(nb, ops.DEFAULT_CHUNKS):
+                accumulate(r0, r1)
             torch.cuda.synchronize()
-            for got in (whole, chunked):
+            for got in (whole, chunked, launched):
                 torch.testing.assert_close(got, want, rtol=RING_RTOL,
                                            atol=RING_ATOL)
             max_err[(dtype, nb)] = float((whole - want).abs().max())
             n_cases += 1
     print(f"ring_accum matches its plain version for int16, int32 and f32 "
-          f"wires at {n_cases} shapes, whole and in the ring's chunks (rtol "
+          f"wires at {n_cases} shapes, whole, in the ring's chunks and "
+          f"through the ring's RowAccumulator (rtol "
           f"{RING_RTOL}, atol {RING_ATOL}); max abs err "
           f"{max(max_err.values()):.3e}")
 
@@ -1088,9 +1176,10 @@ def check_ring_accum(torch, ops):
                          else "operations", library_ms=library_ms)
         if nb == RING_TIMED[0]:
             timed[nb]["device_ms"] = kernel_device_ms(
-                torch, ops.ring_accum_, sets, "ring_accum_kernel")
+                torch, ops.ring_accum_, sets,
+                ("ring_accum_kernel",))["ring_accum_kernel"]
             timed[nb]["library_device_ms"] = kernel_device_ms(
-                torch, ring_library, sets, "addcmul")
+                torch, ring_library, sets, ("addcmul",))["addcmul"]
         del sets
     main = timed[RING_TIMED[0]]
     for what, key in (("kernel", "device_ms"),
@@ -1101,14 +1190,56 @@ def check_ring_accum(torch, ops):
                               f"{main[key]:.4f} ms (profiler), "
                               f"{main['bound_ms'] / main[key]:.3f} of the "
                               f"bound"))
+    ring_path = time_ring_path(torch, ops, gen)
     return {"name": "ring_accum", "route": "cuda",
             "source": "src/repro_torch/csrc/ring_accum.cu",
             "replaces": "src/repro/kernels/ring_wavg/kernel.py:35",
             "launches": None,
             "max_abs_err": max_err[(torch.int16, RING_TIMED[0])],
-            **timed[RING_TIMED[0]],
+            **timed[RING_TIMED[0]], "ring_path": ring_path,
             "backbone_shape": {"rows": RING_TIMED[1], **timed[RING_TIMED[1]]},
             "granite_shape": {"rows": RING_TIMED[2], **timed[RING_TIMED[2]]}}
+
+
+def time_ring_path(torch, ops, gen):
+    """The ring's own launch path at the DCGAN's payload: one
+    RowAccumulator a ring call over the whole (1,356, 2048) tensors, one
+    call a chunk. Timed back to back by CUDA events and by the kernel's
+    device time (profiler) for the whole payload (hop 0) and for the
+    ring's second chunk of 339 rows (hops 1..k-1), beside acc.addcmul_
+    and the public ring_accum_ on the same slices."""
+    nb = RING_TIMED[0]
+    r0, r1 = ops._chunk_bounds(nb, ops.DEFAULT_CHUNKS)[1]
+    sets = [ring_inputs(torch, gen, nb, torch.int16) for _ in range(9)]
+    accumulators = [(ops.RowAccumulator(*t),) for t in sets]
+    out = {}
+    for lo, hi in ((0, nb), (r0, r1)):
+        sliced = [(acc[lo:hi], q[lo:hi], coef[lo:hi])
+                  for acc, q, coef in sets]
+        n_bytes = (hi - lo) * (2048 * (4 + 2 + 4) + 4)
+
+        def launcher(accumulate, lo=lo, hi=hi):
+            accumulate(lo, hi)
+        row = {"rows": hi - lo,
+               "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+               "launcher_ms": time_ms(launcher, accumulators),
+               "ring_accum_ms": time_ms(ops.ring_accum_, sliced),
+               "library_ms": time_ms(ring_library, sliced),
+               "launcher_device_ms": kernel_device_ms(
+                   torch, launcher, accumulators,
+                   ("ring_accum_kernel",))["ring_accum_kernel"],
+               "library_device_ms": kernel_device_ms(
+                   torch, ring_library, sliced, ("addcmul",))["addcmul"]}
+        print(f"ring_accum int16, the ring's path, rows [{lo}, {hi}): "
+              f"launcher {row['launcher_ms']:.4f} ms, public ring_accum_ "
+              f"{row['ring_accum_ms']:.4f} ms, acc.addcmul_ "
+              f"{row['library_ms']:.4f} ms (CUDA events, back to back); "
+              f"device time a launch (profiler): launcher "
+              f"{row['launcher_device_ms']}, acc.addcmul_ "
+              f"{row['library_device_ms']} ms; bound "
+              f"{row['bound_ms']:.4f} ms")
+        out[f"rows_{hi - lo}"] = row
+    return out
 
 
 def _rank_torch():
@@ -1514,8 +1645,7 @@ def main() -> int:
     mamba, backbone_trainer = train_backbone(torch, ops, ssd_ops,
                                              "ssd_scan", MAMBA)
     stamp("train: mamba2-130m backbone path")
-    profile_round(torch, backbone_trainer, "mamba2-130m backbone-GAN",
-                  host_ops=False)
+    profile_round(torch, backbone_trainer, "mamba2-130m backbone-GAN")
     del backbone_trainer
     torch.cuda.empty_cache()
     stamp("profile: mamba2-130m")
@@ -1545,8 +1675,7 @@ def main() -> int:
                  "granite": 0, **by_path[entry["name"]]}
         entry["launches"] = sum(paths.values())
         entry["launches_by_path"] = paths
-    profile_round(torch, backbone_trainer, "granite-3-2b backbone-GAN",
-                  host_ops=False)
+    profile_round(torch, backbone_trainer, "granite-3-2b backbone-GAN")
     stamp("profile: granite-3-2b")
 
     print(json.dumps({"kernels": [wavg, trimmed, ssd, flash, ring]}))

@@ -26,8 +26,10 @@
 //   * every element has exactly one writer: no atomics, deterministic.
 // The caller passes base pointers of the chunk's rows (a contiguous slice
 // of the (n_blocks, 2048) accumulator and the received chunk), which the
-// wrapper checks are 16-byte aligned. Making it faster (TMA, fusing the
-// host-to-device copy of the chunk) is later work.
+// wrapper checks are 16-byte aligned, and the SM count it read once: a
+// launch queries nothing, so the ring's per-chunk launch costs the launch
+// alone on the host. Making it faster (TMA, fusing the host-to-device
+// copy of the chunk) is later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -65,14 +67,9 @@ ring_accum_kernel(float* __restrict__ acc, const T* __restrict__ q,
 
 template <typename T>
 int launch(void* acc, const void* q, const void* coef, long long rows,
-           void* stream) {
+           int sms, void* stream) {
   constexpr int kThreads = kBlockN * sizeof(T) / 16;  // 256 or 512
-  if (rows < 1) return (int)cudaErrorInvalidValue;
-  int device = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return (int)err;
+  if (rows < 1 || sms < 1) return (int)cudaErrorInvalidValue;
   // 2048 resident threads an SM, four waves of them, then grid-stride
   const long long max_blocks = (long long)sms * (2048 / kThreads) * 4;
   const long long blocks = rows < max_blocks ? rows : max_blocks;
@@ -85,20 +82,21 @@ int launch(void* acc, const void* q, const void* coef, long long rows,
 
 }  // namespace
 
-// C entry points, one per wire type, called through ctypes. Each launches
-// on `stream` and returns cudaGetLastError() (0 on success); none
-// synchronises or allocates.
+// C entry points, one per wire type, called through ctypes. `sms` is the
+// card's SM count, which the caller reads once (it sizes the grid). Each
+// launches on `stream` and returns cudaGetLastError() (0 on success);
+// none synchronises, allocates or queries the device.
 extern "C" int ring_accum_i16(void* acc, const void* q, const void* coef,
-                              long long rows, void* stream) {
-  return launch<int16_t>(acc, q, coef, rows, stream);
+                              long long rows, int sms, void* stream) {
+  return launch<int16_t>(acc, q, coef, rows, sms, stream);
 }
 
 extern "C" int ring_accum_i32(void* acc, const void* q, const void* coef,
-                              long long rows, void* stream) {
-  return launch<int32_t>(acc, q, coef, rows, stream);
+                              long long rows, int sms, void* stream) {
+  return launch<int32_t>(acc, q, coef, rows, sms, stream);
 }
 
 extern "C" int ring_accum_f32(void* acc, const void* q, const void* coef,
-                              long long rows, void* stream) {
-  return launch<float>(acc, q, coef, rows, stream);
+                              long long rows, int sms, void* stream) {
+  return launch<float>(acc, q, coef, rows, sms, stream);
 }

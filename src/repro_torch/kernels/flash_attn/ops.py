@@ -131,12 +131,15 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         b, s, h, d = q.shape
         kv = k.shape[2]
-        q_pos, k_pos = folded_positions(s, h // kv, q.device)
-        dq, dk, dv = flash_backward(
-            fold_queries(q, kv), k.transpose(1, 2), v.transpose(1, 2),
-            q_pos, k_pos, d ** -0.5, fold_queries(out, kv),
-            lse.reshape(b, kv, -1), fold_queries(dout, kv), ctx.causal,
-            ctx.window)
+        # a named range, so a profile can attribute the backward's device
+        # time
+        with torch.profiler.record_function("FlashAttention.backward"):
+            q_pos, k_pos = folded_positions(s, h // kv, q.device)
+            dq, dk, dv = flash_backward(
+                fold_queries(q, kv), k.transpose(1, 2), v.transpose(1, 2),
+                q_pos, k_pos, d ** -0.5, fold_queries(out, kv),
+                lse.reshape(b, kv, -1), fold_queries(dout, kv), ctx.causal,
+                ctx.window)
         return (None, unfold_queries(dq, s), dk.transpose(1, 2),
                 dv.transpose(1, 2), None, None)
 

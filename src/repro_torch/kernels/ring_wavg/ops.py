@@ -39,10 +39,14 @@ global) is returned, by a `torch.where` on the device with no host sync.
 
 `ring_accum_` launches the kernel in `repro_torch/csrc/ring_accum.cu` on a
 CUDA tensor or raises; on a CPU tensor it takes the plain version
-(`ref.ring_accum_ref`), and only because the tensor lies on the CPU.
+(`ref.ring_accum_ref`), and only because the tensor lies on the CPU. The
+ring itself launches through a `RowAccumulator`, which checks its
+tensors once a ring call and then costs a launch only a bound check and
+one ctypes call (37 launches a rank a ring round at K=10).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from typing import Optional
@@ -71,14 +75,24 @@ _ENTRY = {torch.int16: "ring_accum_i16", torch.int32: "ring_accum_i32",
           torch.float32: "ring_accum_f32"}
 
 
+# The C entry points' parameters: acc, q, coef; rows; the card's SM
+# count; stream.
+ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
+                                    ctypes.c_void_p]
+
+
 @functools.cache
 def _kernel(dtype):
     fn = getattr(load_library("ring_accum", ("ring_accum.cu",)),
                  _ENTRY[dtype])
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_longlong, ctypes.c_void_p]
+    fn.argtypes = ARGTYPES
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def build():
@@ -184,22 +198,58 @@ def ring_accum_(acc, q, coef):
     """acc[r, :] += coef[r] * float(q[r, :]) in place, for acc (rows,
     BLOCK_N) f32, q (rows, BLOCK_N) int16 | int32 | f32 and coef (rows,)
     f32; returns acc."""
-    global launches
-    _check(acc, q, coef)
-    if acc.device.type == "cpu":
-        return ring_accum_ref(acc, q, coef)
-    if acc.device.type != "cuda":
-        raise ValueError(f"ring_accum runs on CUDA or CPU tensors, not "
-                         f"{acc.device}")
-    with torch.cuda.device(acc.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel(q.dtype)(acc.data_ptr(), q.data_ptr(),
-                               coef.data_ptr(), acc.shape[0], stream)
-    if err != 0:
-        raise RuntimeError(f"ring_accum kernel launch failed with CUDA "
-                           f"error {err}")
-    launches += 1
+    with _device_guard(acc.device):
+        RowAccumulator(acc, q, coef)(0, acc.shape[0])
     return acc
+
+
+def _device_guard(device):
+    return (torch.cuda.device(device) if device.type == "cuda"
+            else contextlib.nullcontext())
+
+
+class RowAccumulator:
+    """`ring_accum_` on row ranges of (acc, q, coef), checked once here:
+    the ring accumulates every chunk of a hop through one, so a launch
+    costs a bound check, one ctypes call and the count. On CUDA tensors
+    the caller holds the device (`_device_guard`) across the calls; the
+    stream is the one current at construction. On CPU tensors a call
+    takes the plain version on the slices."""
+
+    def __init__(self, acc, q, coef):
+        _check(acc, q, coef)
+        if acc.device.type not in ("cuda", "cpu"):
+            raise ValueError(f"ring_accum runs on CUDA or CPU tensors, not "
+                             f"{acc.device}")
+        self.rows = acc.shape[0]
+        self.tensors = acc, q, coef
+        self._launch = None
+        if acc.device.type == "cuda":
+            self._launch = _kernel(q.dtype)
+            self._sms = _sm_count(acc.device.index)
+            self._stream = torch.cuda.current_stream(acc.device).cuda_stream
+            # a row's bytes in acc, q and coef: rows are 2048 elements,
+            # so every row of acc and q starts 16-byte aligned
+            self._base = [(t.data_ptr(), t.stride(0) * t.element_size())
+                          for t in (acc, q, coef)]
+
+    def __call__(self, r0, r1):
+        """Accumulate rows [r0, r1)."""
+        global launches
+        if not 0 <= r0 < r1 <= self.rows:
+            raise ValueError(f"ring_accum rows [{r0}, {r1}) outside the "
+                             f"{self.rows} rows checked")
+        if self._launch is None:
+            acc, q, coef = self.tensors
+            ring_accum_ref(acc[r0:r1], q[r0:r1], coef[r0:r1])
+            return
+        (a, ra), (q, rq), (c, rc) = self._base
+        err = self._launch(a + r0 * ra, q + r0 * rq, c + r0 * rc, r1 - r0,
+                           self._sms, self._stream)
+        if err != 0:
+            raise RuntimeError(f"ring_accum kernel launch failed with CUDA "
+                               f"error {err}")
+        launches += 1
 
 
 def _host_copy(t):
@@ -213,6 +263,58 @@ def _host_copy(t):
 def _empty_like_wire(t):
     return torch.empty(t.shape, dtype=t.dtype, device=t.device,
                        pin_memory=t.is_pinned())
+
+
+def _ring_hops(acc, payload, scales, coef, w_norm, bounds, k, my, group):
+    """Hops 1..k-1 of the ring: after hop h this rank has accumulated
+    worker (my - h) mod k's payload into `acc`, chunk by chunk."""
+    global wire_bytes_sent
+    nxt = mesh.global_rank(group, (my + 1) % k)
+    prv = mesh.global_rank(group, (my - 1) % k)
+
+    def post(send, recv, tag):
+        return dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, send, nxt, group, tag),
+            dist.P2POp(dist.irecv, recv, prv, group, tag)])
+
+    on_host = mesh.wire_on_host(group)
+    buf, sbuf = ((_host_copy(payload), _host_copy(scales)) if on_host
+                 else (payload, scales))
+    if on_host:
+        # the chunks received in host memory are copied here to be
+        # accumulated
+        dev_q = torch.empty_like(payload)
+        accumulate = [RowAccumulator(acc, dev_q, coef)] * 2
+    else:
+        # the wire is on the device: two receive buffers, in turn
+        recv_bufs = [torch.empty_like(payload) for _ in range(2)]
+        accumulate = [RowAccumulator(acc, r, coef) for r in recv_bufs]
+    for h in range(1, k):
+        # The block scales travel once a hop, beside the payload: after
+        # hop h this rank holds worker (my - h) mod k's.
+        rscales = _empty_like_wire(sbuf)
+        for req in post(sbuf, rscales, len(bounds)):
+            req.wait()
+        wire_bytes_sent += sbuf.nbytes
+        sbuf = rscales
+        torch.mul(sbuf.to(coef.device), w_norm[(my - h) % k], out=coef)
+
+        # Chunk c+1's transfer is posted before chunk c is accumulated,
+        # so the two overlap.
+        rbuf = _empty_like_wire(buf) if on_host else recv_bufs[h % 2]
+        reqs = [post(buf[r0:r1], rbuf[r0:r1], c)
+                for c, (r0, r1) in enumerate(bounds[:1])]
+        for c, (r0, r1) in enumerate(bounds):
+            if c + 1 < len(bounds):
+                n0, n1 = bounds[c + 1]
+                reqs.append(post(buf[n0:n1], rbuf[n0:n1], c + 1))
+            for req in reqs[c]:
+                req.wait()
+            wire_bytes_sent += buf[r0:r1].nbytes
+            if on_host:
+                dev_q[r0:r1].copy_(rbuf[r0:r1], non_blocking=True)
+            accumulate[h % 2](r0, r1)
+        buf = rbuf
 
 
 def ring_average_psum(local_params, local_weight, *, group=None,
@@ -230,7 +332,6 @@ def ring_average_psum(local_params, local_weight, *, group=None,
     weights: the group's (K,) weights in rank order, when the caller has
     gathered them already; None gathers them here.
     """
-    global wire_bytes_sent
     leaves = tree_leaves(local_params)
     if not leaves:
         return local_params
@@ -246,47 +347,17 @@ def ring_average_psum(local_params, local_weight, *, group=None,
     bounds = _chunk_bounds(payload.shape[0], DEFAULT_CHUNKS
                            if n_chunks is None else n_chunks)
 
-    # Hop 0: the rank's own contribution, no wire traffic.
+    # Every launch goes through a RowAccumulator, checked once here over
+    # the whole accumulator, a wire buffer on the device and the
+    # coefficients, which each hop rewrites in place.
     acc = torch.zeros(payload.shape, dtype=torch.float32, device=device)
-    ring_accum_(acc, payload, w_norm[my] * scales)
-
-    if k > 1:
-        nxt = mesh.global_rank(group, (my + 1) % k)
-        prv = mesh.global_rank(group, (my - 1) % k)
-
-        def post(send, recv, tag):
-            return dist.batch_isend_irecv([
-                dist.P2POp(dist.isend, send, nxt, group, tag),
-                dist.P2POp(dist.irecv, recv, prv, group, tag)])
-
-        on_host = mesh.wire_on_host(group)
-        buf, sbuf = ((_host_copy(payload), _host_copy(scales)) if on_host
-                     else (payload, scales))
-        for h in range(1, k):
-            # The block scales travel once a hop, beside the payload:
-            # after hop h this rank holds worker (my - h) mod k's.
-            rscales = _empty_like_wire(sbuf)
-            for req in post(sbuf, rscales, len(bounds)):
-                req.wait()
-            wire_bytes_sent += sbuf.nbytes
-            sbuf = rscales
-            coef = w_norm[(my - h) % k] * sbuf.to(device)
-
-            # Chunk c+1's transfer is posted before chunk c is
-            # accumulated, so the two overlap.
-            rbuf = _empty_like_wire(buf)
-            reqs = [post(buf[r0:r1], rbuf[r0:r1], c)
-                    for c, (r0, r1) in enumerate(bounds[:1])]
-            for c, (r0, r1) in enumerate(bounds):
-                if c + 1 < len(bounds):
-                    n0, n1 = bounds[c + 1]
-                    reqs.append(post(buf[n0:n1], rbuf[n0:n1], c + 1))
-                for req in reqs[c]:
-                    req.wait()
-                wire_bytes_sent += buf[r0:r1].nbytes
-                chunk = rbuf[r0:r1].to(device, non_blocking=True)
-                ring_accum_(acc[r0:r1], chunk, coef[r0:r1])
-            buf = rbuf
+    coef = w_norm[my] * scales
+    with _device_guard(device):
+        # Hop 0: the rank's own contribution, no wire traffic.
+        RowAccumulator(acc, payload, coef)(0, acc.shape[0])
+        if k > 1:
+            _ring_hops(acc, payload, scales, coef, w_norm, bounds, k, my,
+                       group)
 
     avg = _decode(acc, local_params)
     if fallback is None:
@@ -296,5 +367,5 @@ def ring_average_psum(local_params, local_weight, *, group=None,
 
 
 __all__ = ["ring_average_psum", "ring_wire_bytes_per_rank", "wire_dtype",
-           "ring_accum_", "ring_accum_ref", "build", "BLOCK_N",
-           "DEFAULT_CHUNKS"]
+           "ring_accum_", "ring_accum_ref", "RowAccumulator", "build",
+           "BLOCK_N", "DEFAULT_CHUNKS"]

@@ -5,8 +5,10 @@ is for the JAX package.
 
 A CUDA tensor launches the kernel in `repro_torch/csrc/ssd_scan.cu` or
 raises; a CPU tensor takes the plain version (`ref.ssd_scan_plain`), and
-only because it lies on the CPU. `launches` counts kernel launches, so a
-run can show that its mixers went through the kernel.
+only because it lies on the CPU. `launches` counts scans launched (each
+is four CUDA kernels: C.B^T per group, the chunk states, the pass across
+chunks and the outputs), so a run can show that its mixers went through
+the kernel.
 
 The gradient: the JAX package has no backward kernel for the scan (its
 training gradient is autodiff of `repro.nn.ssm.ssd_scan_ref`). Here
@@ -25,21 +27,21 @@ import torch
 from repro_torch.kernels._build import load_library
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_plain
 
-# Kernel launches since import (or since a caller reset it to 0).
+# Scans launched since import (or since a caller reset it to 0).
 launches = 0
 
-# What the kernel takes: a chunk of at most MAX_CHUNK tokens (a multiple
-# of 4), d_state n <= MAX_N (a multiple of 4), head_dim p = 32 or a
-# multiple of 64 (one block per 64 columns). Its largest shared-memory
-# need, chunk 128 with n 128, is 221,696 of the 232,448 bytes a block
-# can have.
-MAX_CHUNK, MAX_N, P_TILE = 128, 128, 64
+# What the kernel takes: a chunk of at most MAX_CHUNK tokens (the wrapper
+# rounds it up to a multiple of CHUNK_STEP, the height of its mma tiles:
+# the chunk does not change the result), d_state n a multiple of 4 (16
+# bytes of float32), head_dim p = 32 or a multiple of 64 (one p tile of
+# 32 or 64 columns a block).
+MAX_CHUNK, CHUNK_STEP, P_TILE = 128, 16, 64
 
 
-# The C entry point's parameters: x, dt, A, B, C, y, state, stream;
-# b, s, h, p, g, n, chunk, bf16; the strides of x, dt, B and C over
-# (batch, sequence, head or group).
-ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+# The C entry point's parameters: x, dt, A, B, C, y, state, the scratch
+# cb, states and tot, stream; b, s, h, p, g, n, chunk, bf16; the strides
+# of x, dt, B and C over (batch, sequence, head or group).
+ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
             + [ctypes.c_longlong] * 12)
 
 
@@ -80,6 +82,17 @@ def _check(x, dt, A, B, C, chunk):
     return b, s, h, p, g, n
 
 
+def _aligned(t):
+    """`t` when the kernel can copy its rows in 16-byte pieces (unit
+    stride in the last dimension, a 16-byte aligned start and strides of
+    whole 16 bytes), else a contiguous copy."""
+    step = 16 // t.element_size()
+    if (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(st % step == 0 for st in t.stride()[:-1])):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def _kernel_forward(x, dt, A, B, C, chunk, return_final_state):
     """Launch the kernel: y (b, s, h, p) in x's dtype and, when asked,
     the final state (b, h, n, p) float32."""
@@ -88,30 +101,37 @@ def _kernel_forward(x, dt, A, B, C, chunk, return_final_state):
     if x.device.type != "cuda":
         raise ValueError(f"the ssd_scan kernel runs on CUDA tensors, not "
                          f"{x.device}")
-    chunk = min(chunk, s + (-s) % 4)   # no longer than the padded sequence
-    chunk += (-chunk) % 4
-    if chunk > MAX_CHUNK or n > MAX_N or n % 4 or not (
-            p == 32 or p % P_TILE == 0):
+    # no longer than the padded sequence, a whole number of mma rows
+    chunk = min(chunk, s + (-s) % CHUNK_STEP)
+    chunk += (-chunk) % CHUNK_STEP
+    if chunk > MAX_CHUNK or n % 4 or not (p == 32 or p % P_TILE == 0):
         raise ValueError(f"the ssd_scan kernel takes chunk <= {MAX_CHUNK}, "
-                         f"n <= {MAX_N} with n % 4 == 0, and p == 32 or "
-                         f"p % {P_TILE} == 0; got chunk={chunk}, n={n}, "
-                         f"p={p}")
-    # The kernel reads x, B and C through their strides (unit stride in
-    # the last dimension), so the mixer's slices of one projection need
-    # no copy; dt, A, B and C are read as float32.
-    x = x if x.stride(-1) == 1 else x.contiguous()
+                         f"n % 4 == 0, and p == 32 or p % {P_TILE} == 0; "
+                         f"got chunk={chunk}, n={n}, p={p}")
+    # The kernel reads x, B and C through their strides, so the mixer's
+    # slices of one projection need no copy; dt, A, B and C are read as
+    # float32.
+    x = _aligned(x)
     dt, A = dt.float(), A.float().contiguous()
-    B, C = (t.float() if t.stride(-1) == 1 and t.dtype == torch.float32
-            else t.float().contiguous() for t in (B, C))
+    B, C = (_aligned(t.float()) for t in (B, C))
     y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
     state = (torch.empty((b, h, n, p), dtype=torch.float32, device=x.device)
              if return_final_state else None)
+    # scratch: C.B^T per (batch, chunk, group); the chunk states and the
+    # chunks' decay totals (the last chunk's only with a final state)
+    n_chunks = -(-s // chunk)
+    n_states = n_chunks if return_final_state else n_chunks - 1
+    f32 = dict(dtype=torch.float32, device=x.device)
+    cb = torch.empty((b, n_chunks, g, chunk, chunk), **f32)
+    states = torch.empty((b, h, n_states, n, p), **f32)
+    tot = torch.empty((b, h, n_states), **f32)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernel()(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
             C.data_ptr(), y.data_ptr(),
-            state.data_ptr() if state is not None else None, stream,
+            state.data_ptr() if state is not None else None, cb.data_ptr(),
+            states.data_ptr(), tot.data_ptr(), stream,
             b, s, h, p, g, n, chunk, int(x.dtype == torch.bfloat16),
             *x.stride()[:3], *dt.stride(), *B.stride()[:3], *C.stride()[:3])
     if err != 0:
@@ -145,7 +165,10 @@ class SSDScan(torch.autograd.Function):
     def backward(ctx, *grads):
         from repro_torch.nn.ssm import ssd_scan_ref
         inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-        with torch.enable_grad():
+        # a named range, so a profile can attribute the backward's device
+        # time
+        with (torch.profiler.record_function("SSDScan.backward"),
+              torch.enable_grad()):
             out = ssd_scan_ref(*inputs, chunk=ctx.chunk,
                                return_final_state=ctx.return_final_state)
             outs = out if ctx.return_final_state else (out,)

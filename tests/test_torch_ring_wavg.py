@@ -14,8 +14,11 @@ The ranks are spawned once per K (a module-scoped fixture runs every
 case of that K), initialised through a file in a temporary directory,
 with timeouts on the process group and on the wait for results.
 """
+import ctypes
 import dataclasses
 import functools
+import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -81,6 +84,58 @@ def test_ring_accum_refuses_what_the_kernel_does_not_take():
                  (torch.zeros(BLOCK_N, 2, dtype=torch.int16).T, coef)):
         with pytest.raises(ValueError, match="ring_accum"):
             ops.ring_accum_(acc, q, c)
+
+
+@pytest.mark.parametrize("dtype", ["int16", "int32", "float32"])
+def test_row_accumulator_matches_ring_accum_chunk_by_chunk(dtype):
+    """The ring's launcher, checked once over whole tensors, gives what
+    `ring_accum_` gives on each chunk's slices (the plain version on the
+    CPU), in the ring's ragged chunks, and leaves the other rows alone."""
+    rng = np.random.default_rng(1)
+    nb = 7
+    acc = torch.from_numpy(rng.standard_normal((nb, BLOCK_N))
+                           .astype(np.float32))
+    coef = torch.from_numpy(rng.standard_normal(nb).astype(np.float32))
+    q = (torch.from_numpy(rng.standard_normal((nb, BLOCK_N))
+                          .astype(np.float32)) if dtype == "float32" else
+         torch.from_numpy(rng.integers(-1000, 1000, (nb, BLOCK_N))
+                          .astype(dtype)))
+    got, want = acc.clone(), acc.clone()
+    accumulate = ops.RowAccumulator(got, q, coef)
+    for r0, r1 in ops._chunk_bounds(nb, ops.DEFAULT_CHUNKS):
+        accumulate(r0, r1)
+        ops.ring_accum_(want[r0:r1], q[r0:r1], coef[r0:r1])
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+        np.testing.assert_array_equal(got[r1:].numpy(), acc[r1:].numpy())
+    np.testing.assert_array_equal(
+        got.numpy(), ring_accum_ref(acc.clone(), q, coef).numpy())
+
+
+def test_row_accumulator_refuses_rows_outside_its_tensors():
+    acc, q, coef = torch.zeros(4, BLOCK_N), torch.zeros(4, BLOCK_N), \
+        torch.ones(4)
+    accumulate = ops.RowAccumulator(acc, q, coef)
+    for r0, r1 in ((-1, 2), (2, 2), (3, 1), (0, 5), (4, 5)):
+        with pytest.raises(ValueError, match="outside"):
+            accumulate(r0, r1)
+    with pytest.raises(ValueError, match="ring_accum"):
+        ops.RowAccumulator(acc, q[:3], coef)
+
+
+def test_ctypes_signature_matches_the_cuda_entry_points():
+    """The wrapper's argtypes against each `extern "C" int ring_accum_*`
+    in csrc/ring_accum.cu: one ctypes type per C parameter, of its
+    kind."""
+    src = (pathlib.Path(ops.__file__).parents[2] / "csrc"
+           / "ring_accum.cu").read_text()
+    decls = re.findall(r'extern "C" int (ring_accum_\w+)\(([^)]*)\)', src)
+    assert sorted(name for name, _ in decls) == sorted(ops._ENTRY.values())
+    for _, decl in decls:
+        params = [" ".join(p.split()) for p in decl.split(",")]
+        kinds = [ctypes.c_void_p if "*" in p else
+                 ctypes.c_longlong if p.startswith("long long") else
+                 ctypes.c_int for p in params]
+        assert ops.ARGTYPES == kinds
 
 
 def test_wire_helpers_match_jax():
@@ -254,7 +309,7 @@ def ring_runs(tmp_path_factory):
 def _port(ring_runs, k, name):
     """Per rank: (result tree, wire bytes, dtypes) of the case."""
     i = list(CASES[k]).index(name)
-    return [rank_out[i] for rank_out in ring_runs(k)]
+    return [rank_out[i][:3] for rank_out in ring_runs(k)]
 
 
 def _atol(dtype_name, f32, bf16):
@@ -311,3 +366,18 @@ def test_ring_wire_bytes_sent(ring_runs, k, name):
         {n: jnp.zeros(a.shape[1:]) for n, (a, _) in tree.items()},
         CASES[k][name].bits, k)
     assert [sent for _, sent, _ in _port(ring_runs, k, name)] == [want] * k
+
+
+@pytest.mark.parametrize("k,name", PARAMS, ids=IDS)
+def test_ring_accumulates_through_one_launcher_a_chunk(ring_runs, k, name):
+    """Every rank accumulates its own payload whole (hop 0), then each
+    of the k - 1 hops chunk by chunk: 1 + (k - 1) * chunks launcher
+    calls, 1 + (k - 1) * 4 once the payload has 4 wire blocks."""
+    i = list(CASES[k]).index(name)
+    tree = case_inputs(k, name)[0]
+    one = {n: torch.zeros(a.shape[1:]) for n, (a, _) in tree.items()}
+    nb = ops._n_blocks(one)
+    bounds = ops._chunk_bounds(nb, ops.DEFAULT_CHUNKS)
+    assert len(bounds) == min(nb, ops.DEFAULT_CHUNKS)
+    for rank_out in ring_runs(k):
+        assert rank_out[i][3] == [(0, nb)] + bounds * (k - 1)

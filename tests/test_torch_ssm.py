@@ -8,7 +8,10 @@ port's kernel wrapper takes its plain version on a CPU tensor.
 Tolerances: 1e-5 where both sides run the same chunked algorithm in
 float32 (sums in another order); 1e-4 against the kernel or the
 sequential recurrence (as `tests/test_kernels.py` holds the Pallas
-kernel to the chunked reference), 0.05 for bfloat16 outputs.
+kernel to the chunked reference), 0.05 for bfloat16 outputs. The CUDA
+kernel's decomposition (csrc/ssd_scan.cu) is mirrored in plain torch
+and held to the same 1e-4 and 0.05, with its 3xTF32 products emulated
+by bit operations.
 """
 import ctypes
 import functools
@@ -282,3 +285,129 @@ def test_kernel_function_backward_matches_jax_grad(case):
     (torch.sum(y * torch.from_numpy(cot_y))
      + torch.sum(state * torch.from_numpy(cot_s))).backward()
     _check_grads(targs, jgrads)
+
+
+# ---------------------------------------------------------------------------
+# The kernel's decomposition (csrc/ssd_scan.cu), mirrored in plain torch
+# ---------------------------------------------------------------------------
+
+def tf32(t, *, truncate=False):
+    """float32 -> TF32 (10 mantissa bits) by bit operations: the nearest
+    value (ties away from zero, as `cvt.rna.tf32.f32`), or `truncate`d."""
+    u = t.contiguous().view(torch.int32)
+    return ((u if truncate else u + 0x1000) & -0x2000).view(torch.float32)
+
+
+def matmul_tf32(passes):
+    """a @ b from TF32 operands on float32 sums, as the kernel's mma:
+    one pass of the nearest TF32 values, or three, of the kernel's split
+    a = big + small (big truncated, small = a - big to nearest)."""
+    def mm(a, b):
+        if passes == 1:
+            return tf32(a) @ tf32(b)
+        ab, bb = tf32(a, truncate=True), tf32(b, truncate=True)
+        return tf32(a - ab) @ bb + ab @ tf32(b - bb) + ab @ bb
+    return mm
+
+
+def decomposed_scan(x, dt, A, B, C, chunk, mm=torch.matmul):
+    """The kernel's algorithm: the chunk cumsum of dt * A in float64;
+    C.B^T once per (batch, chunk, group); each chunk's own state
+    B^T diag(dt exp(cs_L - cs)) x; the states across chunks; y = scores
+    . x dt + exp(cs) C . state_in. Returns (y in x's dtype, final state
+    (b, h, n, p)); `mm` takes every matrix product."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2:]
+    c = -(-s // chunk)
+    pad = c * chunk - s
+
+    def chunks(t):   # (b, s, ...) -> (b, c, L, ...), dt = 0 steps past s
+        t = torch.nn.functional.pad(t.float(), (0, 0) * (t.dim() - 2)
+                                    + (0, pad))
+        return t.reshape(b, c, chunk, *t.shape[2:])
+
+    xc, dtc, Bc, Cc = (chunks(t) for t in (x, dt, B, C))
+    dth = dtc.permute(0, 1, 3, 2)                           # (b, c, h, L)
+    cs = (dth * A.float()[:, None]).double().cumsum(-1)
+    rep = h // g
+    cb = mm(Cc.transpose(2, 3), Bc.permute(0, 1, 3, 4, 2))  # (b, c, g, L, L)
+    causal = torch.ones(chunk, chunk, dtype=torch.bool).tril()
+    seg = torch.where(causal, cs[..., :, None] - cs[..., None, :],
+                      -torch.inf)
+    scores = cb.repeat_interleave(rep, dim=2) * torch.exp(seg.float())
+    xh = xc.permute(0, 1, 3, 2, 4)                          # (b, c, h, L, p)
+    Bh, Ch = (t.repeat_interleave(rep, dim=3).permute(0, 1, 3, 2, 4)
+              for t in (Bc, Cc))                            # (b, c, h, L, n)
+    w = dth * torch.exp((cs[..., -1:] - cs).float())
+    own = mm(Bh.transpose(-1, -2), xh * w[..., None])       # (b, c, h, n, p)
+    run, state_in = torch.zeros_like(own[:, 0]), []
+    for j in range(c):
+        state_in.append(run)
+        run = torch.exp(cs[:, j, :, -1].float())[..., None, None] * run \
+            + own[:, j]
+    y = (mm(scores, xh * dth[..., None])
+         + mm(Ch * torch.exp(cs.float())[..., None],
+              torch.stack(state_in, dim=1)))
+    y = y.permute(0, 1, 3, 2, 4).reshape(b, c * chunk, h, p)[:, :s]
+    return y.to(x.dtype), run
+
+
+# (b, s, h, p, g, n, chunk): 5 chunks, the last ragged (8 of 16 steps)
+DECOMP_SHAPE = (2, 72, 4, 32, 2, 16, 16)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("g", [1, 2])
+def test_decomposition_matches_jax(g, dtype):
+    """The mirror against the JAX package: y and the final state to 1e-4
+    (float32 x, the sequential `ssd_ref`) or to 0.05 (bfloat16 x, the
+    Pallas kernel in interpret mode, as the wrapper's test)."""
+    b, s, h, p, _, n, chunk = DECOMP_SHAPE
+    x, dt, A, B, C = scan_inputs(b, s, h, p, g, n, seed=8)
+    tx = torch.tensor(x).to(getattr(torch, dtype))
+    y, state = decomposed_scan(tx, *torch_args((dt, A, B, C)), chunk)
+    assert y.dtype == tx.dtype and state.shape == (b, h, n, p)
+    if dtype == "float32":
+        jy, jstate = jax_sequential_scan(*map(jnp.asarray, (x, dt, A, B, C)))
+        atol = 1e-4
+    else:
+        jy, jstate = jops.ssd_scan(
+            jnp.asarray(x, jnp.bfloat16), *map(jnp.asarray, (dt, A, B, C)),
+            chunk=chunk, return_final_state=True, interpret=True)
+        atol = 0.05
+    np.testing.assert_allclose(y.float().numpy(), np.asarray(jy, np.float32),
+                               rtol=0, atol=atol)
+    np.testing.assert_allclose(state.numpy(), np.asarray(jstate), rtol=0,
+                               atol=atol)
+
+
+def test_tf32_rounding_by_bits():
+    v = torch.tensor([1 + 2 ** -11, 1 + 3 * 2 ** -11, -(1 + 2 ** -11),
+                      1 + 2 ** -11 - 2 ** -20, 3.0])
+    np.testing.assert_array_equal(
+        tf32(v).numpy(), np.float32([1 + 2 ** -10, 1 + 2 ** -9,
+                                     -(1 + 2 ** -10), 1.0, 3.0]))
+    np.testing.assert_array_equal(
+        tf32(v, truncate=True).numpy(),
+        np.float32([1.0, 1 + 2 ** -10, -1.0, 1.0, 3.0]))
+
+
+@pytest.mark.parametrize("decay", ["chip", "strong"])
+def test_three_tf32_passes_hold_float32_accuracy(decay):
+    """The mirror's products from TF32 operands at the chip's shape of a
+    head (n = 128, chunk 128, B and C scaled by (8 / n) ** 0.5 as
+    chip_smoke.py draws them, |y| ~ 10): three passes stay within 1e-4
+    of float32 products, one pass does not. "strong": A = -8, a decay
+    of e^-8 and more a step."""
+    b, s, h, p, g, n, chunk = 1, 256, 2, 32, 1, 128, 128
+    x, dt, A, B, C = scan_inputs(b, s, h, p, g, n, seed=9,
+                                 A=-8.0 if decay == "strong" else None)
+    args = torch_args((x, dt, A, B * (8 / n) ** 0.5, C * (8 / n) ** 0.5))
+    y, state = decomposed_scan(*args, chunk)
+    assert float(y.abs().max()) > 5
+    for passes, within in ((3, True), (1, False)):
+        y_tc, state_tc = decomposed_scan(*args, chunk,
+                                         mm=matmul_tf32(passes))
+        err = max(float((y_tc - y).abs().max()),
+                  float((state_tc - state).abs().max()))
+        assert (err <= 1e-4) == within, (passes, err)

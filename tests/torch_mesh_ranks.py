@@ -27,11 +27,21 @@ def _draws(fields):
 
 def ring_cases(cases, rank, world_size, device):
     """Every case's `ring_average_psum` on this rank: (result tree as
-    float32, wire bytes sent, result dtypes)."""
+    float32, wire bytes sent, result dtypes, the row ranges accumulated
+    through `ops.RowAccumulator`, in order)."""
     from repro_torch.kernels.ring_wavg import ops
     _setup()
+    ranges = []
+    accumulate = ops.RowAccumulator.__call__
+
+    def recorded(self, r0, r1):
+        ranges.append((r0, r1))
+        return accumulate(self, r0, r1)
+
+    ops.RowAccumulator.__call__ = recorded
     out = []
     for case in cases:
+        ranges.clear()
         tree = {name: torch.from_numpy(a[rank]).to(getattr(torch, dt))
                 for name, (a, dt) in case["tree"].items()}
         fallback = (tree_map(torch.ones_like, tree) if case["fallback"]
@@ -44,7 +54,8 @@ def ring_cases(cases, rank, world_size, device):
             bits=case["bits"], n_chunks=case["n_chunks"], fallback=fallback)
         out.append((tree_map(lambda x: x.float(), avg),
                     ops.wire_bytes_sent - before,
-                    {name: str(x.dtype) for name, x in avg.items()}))
+                    {name: str(x.dtype) for name, x in avg.items()},
+                    list(ranges)))
     return out
 
 
