@@ -2,6 +2,10 @@
 """End-to-end check of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --parent DIR   # phases 1-3, then the flash_attn
+                                         # and trimmed_wavg kernels of the
+                                         # checkout in DIR timed beside
+                                         # this one's
 
 Phases, in order; any failure exits non-zero:
   1. device   the card's name and power limit (nvidia-smi); TF32 off for
@@ -13,7 +17,14 @@ Phases, in order; any failure exits non-zero:
   3. kernels  each kernel against its plain PyTorch version at the main
               paths' shapes and at edge shapes; timed with CUDA events
               beside its bound and, where one exists, a PyTorch library
-              call; the trimmed mean keeps the honest rows' range;
+              call; trimmed_wavg at K 1-64 (every exact-K instance
+              kind and both KMAX buckets), N % 4 != 0 and a payload 4
+              bytes off 16-byte alignment (the scalar path), its HBM
+              share beside wavg's on the same payload, and the honest
+              rows' range; flash_attn at 27 shapes, D 32-256 (ragged
+              tiles, windows, bidirectional, bf16, strided and unaligned
+              q), its refusal of D 96, timed at the main shape, qwen3-
+              1.7b's heads and gemma3-12b's D 256 beside SDPA;
               ssd_scan at 26 shapes (one chunk, 128 chunks, ragged last
               chunks, groups, p 32-128, n 16-160, bf16 x at the main
               shape), its
@@ -71,7 +82,9 @@ Phases, in order; any failure exits non-zero:
 The last two lines are the `kernels` JSON line and
 {"ok": true, "device": {...}}.
 """
+import argparse
 import concurrent.futures
+import contextlib
 import copy
 import dataclasses
 import functools
@@ -103,7 +116,9 @@ N_GRANITE = 348_153_856
 N_FEDGAN = 6_342_272            # FedGAN's payload: discriminator + generator
 EDGE_N = (1, 3, 2048, 2049)
 EDGE_K = (1, 7, 64)
-TRIM_EDGE_K = (1, 2, 5, 13, 32, 64)   # every KMAX of the kernel
+# every instance kind of the kernel: exact K up to 16 (the paper's 10),
+# KMAX 32 and 64 past it, and the edges between them
+TRIM_EDGE_K = (1, 2, 3, 5, 10, 13, 16, 17, 32, 33, 64)
 TRIM_EDGE = (0, 1, 3)
 # The Mamba-2 SSD scan of the full-width mamba2-130m backbone-GAN:
 # b = m = 8 sequences of 512 tokens, 24 heads of 64, one group of 128.
@@ -117,6 +132,8 @@ SSD_KERNELS = ("ssd_cb_kernel", "ssd_state_kernel", "ssd_prefix_kernel",
 # qwen3-1.7b's heads (16 of 128 over 8).
 FLASH_MAIN = dict(b=4, s=1024, h=32, kv=8, d=64)
 FLASH_QWEN3 = dict(b=4, s=1024, h=16, kv=8, d=128)
+# gemma3-12b's head_dim (256) over 16 heads and 8 kv heads, one sequence
+FLASH_GEMMA3 = dict(b=1, s=1024, h=16, kv=8, d=256)
 FLASH_ATOL, FLASH_ATOL_BF16 = 2e-5, 0.05   # as tests/test_kernels.py
 # The backbone-GAN paths: full width, K = 4 devices, 4,096 tokens a
 # batch; granite-3-2b's 40 layers cut to 4, so that K discriminators with
@@ -225,9 +242,11 @@ def check_wavg(torch, ops):
 def check_trimmed(torch, ops):
     """The trimmed_wavg kernel against its plain version at the main
     paths' shapes and at edge shapes (dropped rows, duplicated rows,
-    integer-valued rows whose ties the index rule breaks), the honest-
-    range property, and timings at both main shapes. Returns the
-    kernel's JSON entry (launches unset)."""
+    integer-valued rows whose ties the index rule breaks; N % 4 != 0 and
+    a payload whose start is not 16-byte aligned, both on the kernel's
+    scalar path), the honest-range property, and timings at both main
+    shapes beside wavg's on the same payload. Returns the kernel's JSON
+    entry (launches unset)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
 
     def inputs(k, n, *, n_zero=0, ties=False):
@@ -243,19 +262,33 @@ def check_trimmed(torch, ops):
         return x, w
 
     cases = [((K_MAIN, N_MAIN), 2, 1, False), ((K_MAIN, N_FEDGAN), 1, 1,
-                                                False)]
+                                                False),
+             ((K_MAIN, N_MAIN + 2), 2, 1, False)]   # N % 4 != 0
     cases += [((k, n), trim, k // 4, trim == 3) for k in TRIM_EDGE_K
               for n in EDGE_N for trim in TRIM_EDGE]
     max_err = {}
-    for (k, n), trim, n_zero, ties in cases:
-        x, w = inputs(k, n, n_zero=n_zero, ties=ties)
+
+    def check(key, x, w, trim):
         out = ops.trimmed_average(x, w, trim=trim)
         torch.cuda.synchronize()
         ref = ops.trimmed_mean_ref(x, w, trim)
         torch.testing.assert_close(out, ref, rtol=RTOL, atol=ATOL)
-        max_err[(k, n, trim)] = float((out - ref).abs().max())
-    print(f"trimmed_wavg matches its plain version at {len(cases)} shapes "
-          f"(rtol {RTOL}, atol {ATOL}); max abs err "
+        max_err[key] = float((out - ref).abs().max())
+
+    for (k, n), trim, n_zero, ties in cases:
+        check((k, n, trim), *inputs(k, n, n_zero=n_zero, ties=ties), trim)
+    # a contiguous payload that starts 4 bytes past a 16-byte boundary
+    x, w = inputs(K_MAIN, N_MAIN, n_zero=1)
+    carved = torch.empty(K_MAIN * N_MAIN + 1, device="cuda")[1:].view(
+        K_MAIN, N_MAIN)
+    carved.copy_(x)
+    if carved.data_ptr() % 16 != 4:
+        raise AssertionError("the carved payload is 16-byte aligned")
+    check("unaligned", carved, w, 2)
+    del x, carved
+    print(f"trimmed_wavg matches its plain version at {len(cases) + 1} "
+          f"shapes, K in {TRIM_EDGE_K}, one payload 4 bytes off 16-byte "
+          f"alignment (rtol {RTOL}, atol {ATOL}); max abs err "
           f"{max(max_err.values()):.3e}")
 
     x = torch.randn((K_MAIN, N_MAIN), generator=gen, device="cuda")
@@ -277,6 +310,8 @@ def check_trimmed(torch, ops):
                             main)
         plain_ms = time_ms(lambda x, w: ops.trimmed_mean_ref(x, w, trim),
                            main)
+        wavg_ms = time_ms(ops.wavg_ops.weighted_average,
+                          [(x, w / w.sum()) for x, w in main])
         pairs = min(trim, (K_MAIN - 1) // 2)
         n_bytes = (K_MAIN * n + K_MAIN + n) * 4
         # per column: 2 * pairs passes of K compares, K multiply-adds,
@@ -287,12 +322,13 @@ def check_trimmed(torch, ops):
         timed[n] = dict(ms=kernel_ms, plain_ms=plain_ms,
                         bound_ms=max(bytes_ms, ops_ms),
                         bound_by="bytes" if bytes_ms >= ops_ms
-                        else "operations")
+                        else "operations", wavg_ms=wavg_ms)
         print(f"trimmed_wavg K={K_MAIN} N={n} trim={trim}: kernel "
               f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
               f"{max(bytes_ms, ops_ms):.4f} ms ({n_bytes} B, {ops_count} "
-              f"ops); {bytes_ms / kernel_ms:.3f} of HBM peak; no single "
-              f"PyTorch call computes it")
+              f"ops); {bytes_ms / kernel_ms:.3f} of HBM peak, wavg on the "
+              f"same payload {wavg_ms:.4f} ms, {bytes_ms / wavg_ms:.3f}; no "
+              f"single PyTorch call computes it")
         del main
     return {"name": "trimmed_wavg", "route": "cuda",
             "source": "src/repro_torch/csrc/trimmed_wavg.cu",
@@ -441,10 +477,12 @@ def check_ssd(torch, ops, ref, ssm):
             "chunked_torch_ms": torch_ms, "kernels_device_ms": by_kernel}
 
 
-def flash_inputs(torch, gen, b, s, h, kv, d, *, dtype=None, strided=False):
+def flash_inputs(torch, gen, b, s, h, kv, d, *, dtype=None, strided=False,
+                 unaligned=False):
     """q (b, s, h, d), k, v (b, s, kv, d) standard normal on the card, as
     tests/test_kernels.py::TestFlashAttn draws them. strided=True slices
-    them out of one (b, s, h + 2 kv, d) tensor."""
+    them out of one (b, s, h + 2 kv, d) tensor; unaligned=True starts q
+    one element past a 16-byte boundary (the wrapper copies it)."""
     f = functools.partial(torch.randn, generator=gen, device="cuda")
     if strided:
         qkv = f((b, s, h + 2 * kv, d))
@@ -453,30 +491,60 @@ def flash_inputs(torch, gen, b, s, h, kv, d, *, dtype=None, strided=False):
         q, k, v = f((b, s, h, d)), f((b, s, kv, d)), f((b, s, kv, d))
     if dtype is not None:
         q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    if unaligned:
+        q = torch.empty(q.numel() + 1, dtype=q.dtype,
+                        device="cuda")[1:].view(q.shape).copy_(q)
     return q, k, v
+
+
+def flash_cost(b, s, h, kv, d):
+    """(bytes, flop) of one causal call: q, k, v, out and lse once each;
+    the causal triangle of q.k and of p.v, 2 D flops each per (row, key)
+    pair."""
+    return (4 * (2 * b * s * h * d + 2 * b * s * kv * d + b * h * s),
+            4 * b * h * d * s * (s + 1) // 2)
+
+
+def flash_bounds(n_bytes, flops):
+    """(f32 SIMT bound, f32-accurate tensor-core bound) in ms: the bytes'
+    time or the flops at 67 TFLOP/s f32, or as three TF32 passes at 495
+    TFLOP/s, whichever is larger."""
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    return (max(bytes_ms, flops / F32_FLOPS_PER_S * 1e3),
+            max(bytes_ms, TF32X3_PASSES * flops / TF32_FLOPS_PER_S * 1e3))
 
 
 def check_flash(torch, ops, ref):
     """The flash_attn kernel, out and lse, against its plain version (the
     port's blockwise flash_ref) at the main path's shape and at edge
-    shapes; timings of the kernel, the plain version and PyTorch's
+    shapes, D 32 to 256; the wrapper's refusal of another head_dim;
+    timings of the kernel, the plain version and PyTorch's
     scaled_dot_product_attention (never called by the port) at the main
-    shape. Returns the kernel's JSON entry (launches unset)."""
+    shape, qwen3-1.7b's heads and gemma3-12b's (D 256). Returns the
+    kernel's JSON entry (launches unset)."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     small = dict(b=2, h=4, kv=2, d=64)
+    bf16 = torch.bfloat16
     cases = [(FLASH_MAIN, {}), (dict(FLASH_MAIN, b=1), dict(strided=True))]
     cases += [(dict(small, s=s), {}) for s in (1, 63, 64, 65, 520)]
-    cases += [(dict(small, s=200, d=d), {}) for d in (32, 64, 128)]
+    cases += [(dict(small, s=200, d=d), {}) for d in (32, 64, 128, 256)]
     cases += [(dict(small, s=130, h=h, kv=kv), {})
               for h, kv in ((4, 4), (8, 2))]
     cases += [(dict(small, s=300), dict(window=w)) for w in (9, 100)]
     cases += [(dict(small, s=200), dict(causal=False)),
               (dict(small, s=200), dict(causal=False, window=50))]
-    cases += [(dict(small, s=200), dict(dtype=torch.bfloat16)),
-              (dict(small, s=200, d=128), dict(dtype=torch.bfloat16,
-                                                window=9)),
-              (dict(FLASH_MAIN, b=1), dict(dtype=torch.bfloat16)),
+    cases += [(dict(small, s=200), dict(dtype=bf16)),
+              (dict(small, s=200, d=128), dict(dtype=bf16, window=9)),
+              (dict(FLASH_MAIN, b=1), dict(dtype=bf16)),
               (FLASH_QWEN3, {})]
+    # head_dim 256 (gemma3-12b): causal, windowed, bidirectional, ragged
+    # last tiles, bf16, strided
+    cases += [(dict(small, s=300, d=256), dict(window=100)),
+              (dict(small, s=77, d=256), dict(causal=False)),
+              (dict(small, s=131, d=256), dict(dtype=bf16)),
+              (dict(small, s=200, d=256), dict(dtype=bf16, window=9)),
+              (dict(FLASH_GEMMA3, s=257), dict(strided=True))]
+    cases += [(dict(small, s=100), dict(unaligned=True))]
     max_err = {}
     for i, (shape, kw) in enumerate(cases):
         kw = dict(kw)
@@ -495,46 +563,122 @@ def check_flash(torch, ops, ref):
         max_err[i] = max(float((out - out_plain).abs().max()),
                          float((lse - lse_plain).abs().max()))
         del q, k, v, out, lse, out_plain, lse_plain
+    d256 = [e for i, e in max_err.items() if cases[i][0]["d"] == 256]
     print(f"flash_attn matches its plain version at {len(cases)} shapes, out "
           f"and lse (atol {FLASH_ATOL} f32, {FLASH_ATOL_BF16} bf16); max abs "
           f"err {max(max_err.values()):.3e}, at the main shape "
-          f"{max_err[0]:.3e}")
+          f"{max_err[0]:.3e}, at D 256 {max(d256):.3e}")
+    try:
+        ops._kernel_forward(*flash_inputs(torch, gen, **dict(small, s=8,
+                                                              d=96)),
+                            True, None)
+    except ValueError as err:
+        print(f"flash_attn refuses head_dim 96: {err}")
+    else:
+        raise AssertionError("flash_attn took head_dim 96")
 
-    b, s, h, kv, d = (FLASH_MAIN[key] for key in "b s h kv d".split())
-    # three input sets of ~50 MB each, together past L2
-    sets = [flash_inputs(torch, gen, **FLASH_MAIN) for _ in range(3)]
-    kernel_ms = time_ms(lambda q, k, v: ops._kernel_forward(q, k, v, True,
-                                                            None), sets)
-    plain_ms = time_ms(lambda q, k, v: ref.flash_attention_plain(q, k, v),
-                       sets, reps=5, per_rep=3, warmup=1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    heads_first = [tuple(t.transpose(1, 2).contiguous() for t in qkv)
-                   for qkv in sets]
-    library_ms = time_ms(lambda q, k, v: sdpa(q, k, v, is_causal=True,
-                                              enable_gqa=True), heads_first)
-    # bytes: q, k, v, out and lse once each; operations: the causal
-    # triangle of q.k and of p.v, 2 D flops each per (row, key) pair
-    n_bytes = 4 * (2 * b * s * h * d + 2 * b * s * kv * d + b * h * s)
-    flops = 4 * b * h * d * s * (s + 1) // 2
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    flops_ms = flops / F32_FLOPS_PER_S * 1e3
-    tc_ms = max(bytes_ms, TF32X3_PASSES * flops / TF32_FLOPS_PER_S * 1e3)
-    print(f"flash_attn b={b} s={s} H={h} KV={kv} D={d} causal f32: kernel "
-          f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
-          f"{library_ms:.4f} ms; bound {max(bytes_ms, flops_ms):.4f} ms "
-          f"({n_bytes} B = {bytes_ms:.4f} ms, {flops} flop = "
-          f"{flops_ms:.4f} ms); {flops / kernel_ms / 1e9:.3f} TFLOP/s, "
-          f"{max(bytes_ms, flops_ms) / kernel_ms:.3f} of the bound; the "
-          f"f32-accurate tensor-core bound (3 TF32 passes) {tc_ms:.4f} ms, "
-          f"{tc_ms / kernel_ms:.3f} of it")
+    timed = {}
+    for name, shape in (("main", FLASH_MAIN), ("qwen3", FLASH_QWEN3),
+                        ("gemma3", FLASH_GEMMA3)):
+        b, s, h, kv, d = (shape[key] for key in "b s h kv d".split())
+        # three input sets, together past L2
+        sets = [flash_inputs(torch, gen, **shape) for _ in range(3)]
+        kernel_ms = time_ms(lambda q, k, v: ops._kernel_forward(
+            q, k, v, True, None), sets)
+        plain_ms = time_ms(lambda q, k, v: ref.flash_attention_plain(q, k, v),
+                           sets, reps=5, per_rep=3, warmup=1)
+        heads_first = [tuple(t.transpose(1, 2).contiguous() for t in qkv)
+                       for qkv in sets]
+        library_ms = time_ms(lambda q, k, v: sdpa(q, k, v, is_causal=True,
+                                                  enable_gqa=True),
+                             heads_first)
+        n_bytes, flops = flash_cost(b, s, h, kv, d)
+        simt_ms, tc_ms = flash_bounds(n_bytes, flops)
+        print(f"flash_attn {name} b={b} s={s} H={h} KV={kv} D={d} causal "
+              f"f32: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"SDPA {library_ms:.4f} ms; {flops} flop, {n_bytes} B: "
+              f"{flops / kernel_ms / 1e9:.3f} TFLOP/s; the f32 SIMT bound "
+              f"{simt_ms:.4f} ms ({simt_ms / kernel_ms:.3f} of it), the "
+              f"f32-accurate tensor-core bound (3 TF32 passes) {tc_ms:.4f} "
+              f"ms ({tc_ms / kernel_ms:.3f} of it)")
+        timed[name] = dict(
+            ms=kernel_ms, plain_ms=plain_ms, bound_ms=tc_ms,
+            bound_by="bytes" if tc_ms == n_bytes / HBM_BYTES_PER_S * 1e3
+            else "operations", library_ms=library_ms,
+            bound_f32_simt_ms=simt_ms)
+        del sets, heads_first
     return {"name": "flash_attn", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attn.cu",
             "replaces": "src/repro/kernels/flash_attn/kernel.py:83",
-            "launches": None, "max_abs_err": max_err[0],
-            "ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, flops_ms),
-            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
-            "library_ms": library_ms, "bound_tf32x3_ms": tc_ms}
+            "launches": None, "max_abs_err": max_err[0], **timed["main"],
+            "qwen3_shape": {**FLASH_QWEN3, **timed["qwen3"]},
+            "gemma3_shape": {**FLASH_GEMMA3, **timed["gemma3"]}}
+
+
+@contextlib.contextmanager
+def launching(kernel_ops, fn):
+    """kernel_ops' wrapper, launching `fn` (an entry point of the same C
+    signature) in place of its own library's."""
+    own = kernel_ops._kernel
+    kernel_ops._kernel = lambda: fn
+    try:
+        yield
+    finally:
+        kernel_ops._kernel = own
+
+
+def compare_with_parent(torch, parent, flash_ops, robust_ops):
+    """The flash_attn and trimmed_wavg kernels of another checkout (their
+    C entry points as this checkout's), built from `parent`/src/
+    repro_torch/csrc, timed beside this checkout's through the same
+    wrappers on the same inputs, in turns: parent, this, this, parent."""
+    from repro_torch.kernels._build import load_library
+    csrc = os.path.join(os.path.abspath(parent), "src", "repro_torch", "csrc")
+
+    def entry(kernel_ops, name, symbol):
+        fn = getattr(load_library(f"{name}_parent",
+                                  (os.path.join(csrc, f"{name}.cu"),)),
+                     symbol)
+        own = kernel_ops._kernel()
+        fn.argtypes, fn.restype = own.argtypes, own.restype
+        return fn
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    flash_parent = entry(flash_ops, "flash_attn", "flash_attn")
+    trimmed_parent = entry(robust_ops, "trimmed_wavg", "trimmed_wavg_f32")
+    runs = []
+    for name, shape in (("main", FLASH_MAIN), ("qwen3", FLASH_QWEN3)):
+        runs.append((f"flash_attn {name} {shape}", flash_ops, flash_parent,
+                     functools.partial(flash_ops._kernel_forward,
+                                       causal=True, window=None),
+                     [flash_inputs(torch, gen, **shape) for _ in range(3)],
+                     FLASH_ATOL))
+    for n, trim in ((N_MAIN, 2), (N_FEDGAN, 1)):
+        runs.append((f"trimmed_wavg K={K_MAIN} N={n} trim={trim}",
+                     robust_ops, trimmed_parent,
+                     functools.partial(robust_ops.trimmed_average, trim=trim),
+                     [(torch.randn((K_MAIN, n), generator=gen, device="cuda"),
+                       torch.ones(K_MAIN, device="cuda")) for _ in range(3)],
+                     ATOL))
+    for label, kernel_ops, parent_fn, run, sets, atol in runs:
+        with launching(kernel_ops, parent_fn):
+            before = run(*sets[0])
+        # each is held to the plain version at atol; so they agree at 2 atol
+        torch.testing.assert_close(run(*sets[0]), before, rtol=RTOL,
+                                   atol=2 * atol)
+        times = {"parent": [], "this": []}
+        for who in ("parent", "this", "this", "parent"):
+            if who == "parent":
+                with launching(kernel_ops, parent_fn):
+                    times[who].append(time_ms(run, sets))
+            else:
+                times[who].append(time_ms(run, sets))
+        print(f"{label}: parent {times['parent'][0]:.4f} "
+              f"{times['parent'][1]:.4f} ms, this checkout "
+              f"{times['this'][0]:.4f} {times['this'][1]:.4f} ms (parent, "
+              f"this, this, parent); outputs agree")
+        del sets
 
 
 def check_backbone_round_against_cpu(torch, kernel_ops, kernel, cfg, seq):
@@ -1565,6 +1709,13 @@ def stamp(phase):
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument(
+        "--parent", metavar="DIR",
+        help="after phase 3, time the flash_attn and trimmed_wavg kernels "
+             "of the checkout in DIR (e.g. a `git archive` of the parent "
+             "commit) beside this one's, and stop")
+    args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1607,6 +1758,10 @@ def main() -> int:
     flash = check_flash(torch, flash_ops, flash_ref)
     ring = check_ring_accum(torch, ring_ops)
     stamp("kernels")
+    if args.parent:
+        compare_with_parent(torch, args.parent, flash_ops, robust_ops)
+        stamp("parent comparison")
+        return 0
 
     # 4. small rounds, card vs CPU
     check_round_against_cpu(torch)

@@ -65,7 +65,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32x3.cuh"
+
 namespace {
+
+using tf32x3::cp16;
+using tf32x3::cp_commit;
+using tf32x3::cp_wait;
+using tf32x3::mma3;
 
 constexpr int THREADS = 256;   // 8 warps: 4 along the rows x 2 along the columns
 constexpr int BM = 64;         // rows of a block's output tile
@@ -100,21 +107,6 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-// 16 bytes global -> shared, asynchronously; zero-filled when !ok (then
-// `gmem` is only a valid address, nothing is read).
-__device__ __forceinline__ void cp16(void* smem, const void* gmem, bool ok) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // The K loop over nk tiles: `load(stage, kt)` stages tile kt's operands
 // by cp.async, STAGES - 1 tiles ahead of `compute(stage, kt)`. One barrier
 // a tile: past it, tile kt has landed and every warp is done with tile
@@ -139,51 +131,6 @@ __device__ __forceinline__ void run_tiles(int nk, Load load,
     cp_commit();
     compute(kt % STAGES, kt);
   }
-}
-
-// a = big + small, both TF32 (10 mantissa bits): big is a truncated, the
-// rest a - big (exact in float32) is rounded to nearest, ties away from
-// zero. Integer masks, which issue at the full rate (cvt.rna.tf32.f32
-// does not); what small leaves out is below 2^-21 |a|.
-__device__ __forceinline__ void split(float a, uint32_t& big,
-                                      uint32_t& small) {
-  big = __float_as_uint(a) & 0xffffe000u;
-  small = (__float_as_uint(a - __uint_as_float(big)) + 0x1000u) &
-          0xffffe000u;
-}
-
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// One k-step of 8 of a warp's 16 x 8NT tile at float32 accuracy (3xTF32).
-// With g = lane / 4, t = lane % 4: a holds A at rows (g, g+8, g, g+8) and
-// columns (t, t, t+4, t+4); b[j] holds B at rows (t, t+4), column 8j + g;
-// acc[j] holds rows (g, g, g+8, g+8), columns 8j + 2t + (0, 1, 0, 1).
-// The three passes run over all NT tiles in turn, so consecutive mmas
-// write different accumulators.
-template <int NT>
-__device__ __forceinline__ void mma3(float (&acc)[NT][4], const float (&a)[4],
-                                     const float (&b)[NT][2]) {
-  uint32_t ab[4], as[4], bb[NT][2], bs[NT][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) split(a[i], ab[i], as[i]);
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    split(b[j][0], bb[j][0], bs[j][0]);
-    split(b[j][1], bb[j][1], bs[j][1]);
-  }
-#pragma unroll
-  for (int j = 0; j < NT; ++j) mma(acc[j], as, bb[j][0], bb[j][1]);
-#pragma unroll
-  for (int j = 0; j < NT; ++j) mma(acc[j], ab, bs[j][0], bs[j][1]);
-#pragma unroll
-  for (int j = 0; j < NT; ++j) mma(acc[j], ab, bb[j][0], bb[j][1]);
 }
 
 // dts[l] = dt of the chunk's step l (0 past the chunk and past s) and

@@ -35,7 +35,7 @@ from repro_torch.nn.flash_ref import flash_backward
 launches = 0
 
 # head_dim values the kernel is instantiated for
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 
 # The C entry point's parameters: q, k, v, out, lse, stream; b, s, H, KV,
 # D, causal, window (0: none), bf16; the strides of q, k and v over
@@ -79,6 +79,17 @@ def _check(q, k, v, window):
     return b, s, h, kv, d
 
 
+def _readable(t):
+    """t itself where the kernel can read it through its strides (unit
+    stride in D, a 16-byte aligned start, strides of whole 16 bytes),
+    else a contiguous copy."""
+    step = 16 // t.element_size()
+    if (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(st % step == 0 for st in t.stride()[:3])):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def _kernel_forward(q, k, v, causal, window):
     """Launch the kernel: out (b, s, H, D) float32, contiguous, and lse
     (b, H, s) float32."""
@@ -90,8 +101,7 @@ def _kernel_forward(q, k, v, causal, window):
     if d not in HEAD_DIMS:
         raise ValueError(f"the flash_attn kernel takes head_dim in "
                          f"{HEAD_DIMS}, not {d}")
-    # read through strides, with unit stride in the last dimension
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    q, k, v = (_readable(t) for t in (q, k, v))
     out = torch.empty((b, s, h, d), dtype=torch.float32, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):

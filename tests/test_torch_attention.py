@@ -11,7 +11,11 @@ Tolerances: 1e-6 (relative and absolute) for RoPE and the feed-forward
 (the same float32 products, summed in another order); 1e-5 for the
 flash forward, lse and gradients (float32 online softmax over blocks);
 2e-5 in float32 and 0.05 in bfloat16 against the Pallas kernel, as
-`tests/test_kernels.py` holds that kernel to its oracle.
+`tests/test_kernels.py` holds that kernel to its oracle. The CUDA
+kernel's schedule (csrc/flash_attn.cu: 16-row warp tiles, key tiles,
+the online softmax on tiles, P V with its key pairing) is mirrored in
+plain torch, with its 3xTF32 products emulated by bit operations, and
+held to the same 2e-5.
 """
 import ctypes
 import pathlib
@@ -33,6 +37,7 @@ from repro_torch import interop
 from repro_torch.kernels.flash_attn import ops, ref
 from repro_torch.nn import attention, flash_ref, mlp, rope
 from repro_torch.tree import tree_leaves, tree_map
+from torch_tf32 import matmul_tf32
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 KEY = jax.random.PRNGKey(0)
@@ -189,6 +194,24 @@ def test_plain_version_matches_jax_kernel(s, window, causal, dtype):
                                atol=2e-5 if dtype == "float32" else 0.05)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,window", [(40, 9), (24, None)])
+def test_plain_version_matches_jax_kernel_at_head_dim_256(s, window, dtype):
+    """gemma3-12b's head_dim: the plain version against the Pallas kernel
+    in interpret mode (the Pallas kernel takes any head_dim)."""
+    q, k, v = (normals(1, s, h, 256, seed=i)
+               for i, h in enumerate((4, 2, 2)))
+    jdtype = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    want = jflash_ops.flash_attention(
+        *(jnp.asarray(a, jdtype) for a in (q, k, v)), n_kv_heads=2,
+        causal=True, window=window, bq=16, bk=16, interpret=True)
+    got = ops.flash_attention(*(torch.tensor(a).to(getattr(torch, dtype))
+                                for a in (q, k, v)), window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32),
+                               rtol=0,
+                               atol=2e-5 if dtype == "float32" else 0.05)
+
+
 def test_plain_lse_is_the_row_log_sum_exp():
     q, k, v = (torch.tensor(normals(1, 70, h, 32, seed=i))
                for i, h in enumerate((4, 2, 2)))
@@ -212,6 +235,33 @@ def test_ctypes_signature_matches_the_cuda_entry_point():
              ctypes.c_longlong if p.startswith("long long") else ctypes.c_int
              for p in params]
     assert ops.ARGTYPES == kinds
+
+
+def test_head_dims_are_the_entry_points_instances():
+    """HEAD_DIMS, which the wrapper checks (it raises for any other
+    head_dim on the card), holds gemma3-12b's 256 and is the set of
+    head_dims the C entry point dispatches."""
+    src = (pathlib.Path(ops.__file__).parents[2] / "csrc"
+           / "flash_attn.cu").read_text()
+    body = src[src.index('extern "C" int flash_attn('):]
+    cases = tuple(int(d) for d in re.findall(r"case (\d+):", body))
+    assert ops.HEAD_DIMS == cases == (32, 64, 128, 256)
+
+
+def test_kernel_reads_aligned_views_in_place_and_copies_the_rest():
+    """The kernel reads q, k and v through their strides when each starts
+    on 16 bytes with strides of whole 16 bytes (the strided qkv case);
+    anything else is copied to a contiguous tensor first."""
+    qkv = torch.randn(2, 5, 8, 32)
+    for t in (qkv[:, :, :4], qkv[:, :, 4:6], qkv.to(torch.bfloat16)[:, :, 6:]):
+        assert ops._readable(t) is t
+    unaligned = torch.randn(2 * 5 * 4 * 32 + 1)[1:].view(2, 5, 4, 32)
+    transposed = torch.randn(2, 5, 32, 4).transpose(2, 3)
+    for t in (unaligned, transposed):
+        got = ops._readable(t)
+        assert got is not t and got.is_contiguous()
+        assert got.data_ptr() % 16 == 0
+        torch.testing.assert_close(got, t, rtol=0, atol=0)
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():
@@ -313,3 +363,139 @@ def test_attention_and_mlp_refuse_what_is_not_ported():
     x520 = torch.tensor(attention_case(520, False)[1][:1])
     with pytest.raises(NotImplementedError, match="A12"):
         attention.attention_apply(tparams, x520, flash_repeat_kv=True, **kw)
+
+
+# ---------------------------------------------------------------------------
+# The kernel's schedule (csrc/flash_attn.cu), mirrored in plain torch
+# ---------------------------------------------------------------------------
+
+# head_dim -> (warpgroups of 64 query rows a block, keys a tile), as
+# flash_attn.cu's Cfg
+KERNEL_TILES = {32: (1, 64), 64: (2, 64), 128: (2, 16), 256: (1, 8)}
+# P's A fragment column c of an 8-key step holds key PAIRED[c]: column t
+# is key 2t and column t + 4 key 2t + 1 (the order V^T holds them in)
+PAIRED = [0, 2, 4, 6, 1, 3, 5, 7]
+LOG2E = 1.4426950408889634
+
+
+def kernel_schedule(q, k, v, causal=True, window=None, mm=torch.matmul):
+    """The CUDA kernel's algorithm on q (b, s, H, D), k, v (b, s, KV, D):
+    blocks of 64-row warpgroups (each 4 warps of 16 rows), each over the
+    key tiles of its block's reachable range, skipping tiles none of its
+    rows can see; per tile S = (log2(e) / sqrt(D) Q) K^T, an online
+    softmax in base 2 (row max, p = 2^(s - m), p = 0 before the first
+    key), then P V over 8-key steps with the keys paired as P's A
+    fragment reads them; lse = m ln 2 + ln l. Returns (out (b, s, H, D),
+    lse (b, H, s)); `mm` takes every matrix product."""
+    b, s, h, d = q.shape
+    g = h // k.shape[2]
+    groups, bk = KERNEL_TILES[d]
+    bq = 64 * groups
+    out = torch.zeros(b, s, h, d, dtype=q.dtype)
+    lse = torch.zeros(b, h, s, dtype=q.dtype)
+
+    def rows(t, start, n):   # rows [start, start + n) of t (s, D), 0 past s
+        return torch.nn.functional.pad(t[start:start + n],
+                                       (0, 0, 0, max(0, start + n - s)))
+
+    for bi in range(b):
+        for hi in range(h):
+            kq, vq = k[bi, :, hi // g], v[bi, :, hi // g]
+            n_qt = -(-s // bq)
+            for z in range(n_qt):
+                q0 = (n_qt - 1 - z) * bq
+                q_last = min(q0 + bq - 1, s - 1)
+                kt_end = (q_last if causal else s - 1) // bk
+                kt_begin = ((q0 - window + 1) // bk
+                            if window and q0 - window + 1 > 0 else 0)
+                for r0 in range(q0, q0 + bq, 64):
+                    if r0 >= s:
+                        continue
+                    qi = r0 + torch.arange(64)
+                    qw = rows(q[bi, :, hi], r0, 64) * (LOG2E * d ** -0.5)
+                    m = torch.full((64,), -torch.inf, dtype=q.dtype)
+                    l = torch.zeros(64, dtype=q.dtype)
+                    o = torch.zeros(64, d, dtype=q.dtype)
+                    for kt in range(kt_begin, kt_end + 1):
+                        k0 = kt * bk
+                        if (causal and k0 > r0 + 63) or (
+                                window and k0 + bk - 1 <= r0 - window):
+                            continue
+                        kj = k0 + torch.arange(bk)
+                        sc = mm(qw, rows(kq, k0, bk).T)
+                        ok = (kj < s)[None, :].expand(64, bk)
+                        if causal:
+                            ok = ok & (kj[None, :] <= qi[:, None])
+                        if window:
+                            ok = ok & (kj[None, :] > qi[:, None] - window)
+                        sc = torch.where(ok, sc, -torch.inf)
+                        m_new = torch.maximum(m, sc.amax(1))
+                        base = torch.where(m_new == -torch.inf, 0.0, m_new)
+                        alpha = torch.exp2(m - base)
+                        p = torch.exp2(sc - base[:, None])
+                        l = alpha * l + p.sum(1)
+                        o = alpha[:, None] * o
+                        vt = rows(vq, k0, bk)
+                        for j in range(0, bk, 8):
+                            keys = [j + i for i in PAIRED]
+                            o = o + mm(p[:, keys], vt[keys])
+                        m = m_new
+                    n = min(64, s - r0)
+                    ls = torch.clamp(l, min=1e-30)
+                    out[bi, r0:r0 + n, hi] = (o / ls[:, None])[:n]
+                    lse[bi, hi, r0:r0 + n] = (m * np.log(2.0)
+                                              + torch.log(ls))[:n]
+    return out, lse
+
+
+# (D, s, window, causal): ragged last key and query tiles, GQA H=4 over
+# KV=2; s = 150 at D = 32 gives three 64-row warpgroups, the last one
+# ragged, and a window that skips whole key tiles
+SCHEDULE_CASES = {
+    "d32-s150": (32, 150, None, True),
+    "d32-s150-w9": (32, 150, 9, True),
+    "d256-s45-w20": (256, 45, 20, True),
+    "d256-s45-bidirectional": (256, 45, None, False),
+}
+
+
+@pytest.mark.parametrize("case", list(SCHEDULE_CASES))
+def test_kernel_schedule_matches_jax(case):
+    """The mirror, with the kernel's 3xTF32 products, against the JAX
+    package's blockwise oracle of flash_attention_pallas (out and lse),
+    to the kernel's tolerance."""
+    d, s, window, causal = SCHEDULE_CASES[case]
+    q, k, v = (normals(1, s, h, d, seed=i) for i, h in enumerate((4, 2, 2)))
+    out, lse = kernel_schedule(*map(torch.tensor, (q, k, v)), causal,
+                               window, mm=matmul_tf32(3))
+    folded = ref.fold_queries(torch.tensor(q), 2).numpy()
+    pos = np.arange(s, dtype=np.int32)
+    jout, jlse = jflash_ref._flash_fwd_inner(
+        jnp.asarray(folded), *(jnp.asarray(a.transpose(0, 2, 1, 3))
+                               for a in (k, v)),
+        jnp.asarray(np.tile(pos, 2))[None, None], jnp.asarray(pos)[None, None],
+        None, d ** -0.5, causal, window, 512, False)
+    np.testing.assert_allclose(
+        ref.fold_queries(out, 2).numpy(), np.asarray(jout), rtol=0, atol=2e-5)
+    np.testing.assert_allclose(lse.reshape(1, 2, -1).numpy(),
+                               np.asarray(jlse), rtol=0, atol=2e-5)
+
+
+def test_three_tf32_passes_hold_float32_accuracy():
+    """Scores of |s| ~ 10 (q scaled by 10, D = 64): the mirror's products
+    from TF32 operands stay within 2e-5 of the float64 result, out and
+    lse, with three passes of the split, as float32 products do (their
+    own rounding is ~1.5e-5 here, so the yardstick is float64), and not
+    with one pass."""
+    q, k, v = (torch.tensor(normals(1, 80, h, 64, seed=i))
+               for i, h in enumerate((2, 1, 1)))
+    q = q * 10
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k.expand(-1, -1, 2, -1))
+    assert float((scores / 8).abs().median()) > 5
+    out, lse = kernel_schedule(q.double(), k.double(), v.double())
+    for mm, within in ((torch.matmul, True), (matmul_tf32(3), True),
+                       (matmul_tf32(1), False)):
+        out_mm, lse_mm = kernel_schedule(q, k, v, mm=mm)
+        err = max(float((out_mm - out).abs().max()),
+                  float((lse_mm - lse).abs().max()))
+        assert (err <= 2e-5) == within, (mm, err)

@@ -83,3 +83,24 @@ def test_kernel_build_without_nvcc_raises():
                 kernel_ops.build()
     else:
         pytest.skip("nvcc is installed")
+
+
+def test_an_edited_header_changes_the_library_hash(tmp_path):
+    """The build cache key covers the headers a source includes, directly
+    or through another header, so an edited header rebuilds every library
+    that includes it; the kernels' own sources include the shared
+    3xTF32 header."""
+    from repro_torch.kernels import _build
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\n#include <stdint.h>\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n  #  include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// 1\n")
+    sources = [tmp_path / "k.cu"]
+    assert [p.name for p in _build.build_inputs(sources)] == [
+        "k.cu", "a.cuh", "b.cuh"]
+    before = _build.build_digest(sources)
+    assert _build.build_digest(sources) == before
+    (tmp_path / "b.cuh").write_text("// 2\n")
+    assert _build.build_digest(sources) != before
+    for name in ("ssd_scan.cu", "flash_attn.cu"):
+        assert [p.name for p in _build.build_inputs([_build.CSRC / name])
+                ] == [name, "tf32x3.cuh"]

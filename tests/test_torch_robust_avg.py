@@ -107,6 +107,48 @@ def test_trimmed_average_tie_rule_by_hand():
     np.testing.assert_allclose(out[0], (4 * 0 + 5 * 2) / 9, rtol=1e-7)
 
 
+def kernel_selection(x, w, trim):
+    """The passes of csrc/trimmed_wavg.cu in plain torch: each scans k
+    DOWNWARD and takes row k while it is included and x[k] >= the best so
+    far (the max pass, from -inf) or <= it (the min pass, from +inf); the
+    last row taken goes. Pair i only while n_part >= 2i + 3. Returns the
+    survivors (K, N)."""
+    k, n = x.shape
+    part = w > 0
+    n_part = int(part.sum())
+    pairs = min(trim, (n_part - 1) // 2) if n_part >= 3 else 0
+    inc = part[:, None].repeat(1, n)
+    cols = torch.arange(n)
+    for _ in range(pairs):
+        for better, start in ((torch.ge, -torch.inf), (torch.le, torch.inf)):
+            best = torch.full((n,), start)
+            pick = torch.zeros(n, dtype=torch.long)
+            for r in range(k - 1, -1, -1):
+                take = inc[r] & better(x[r], best)
+                best = torch.where(take, x[r], best)
+                pick = torch.where(take, r, pick)
+            inc[pick, cols] = False
+    return inc
+
+
+@pytest.mark.parametrize("k,trim,n_zero", [(3, 1, 0), (10, 2, 1), (10, 3, 0),
+                                           (17, 2, 2)])
+def test_kernel_downward_scan_keeps_the_lowest_index_rule(k, trim, n_zero):
+    """The kernel's downward non-strict scan removes the same rows as the
+    reference's first occurrence (lowest index) among ties: on integer
+    payloads, where nearly every column ties, the survivors' mean is the
+    plain version's bit for bit and JAX's to its tolerance."""
+    x, w = _payload(k, 2053, seed=k + trim, n_zero=n_zero, ties=True)
+    tx, tw = torch.from_numpy(x), torch.from_numpy(w)
+    wk = torch.where(kernel_selection(tx, tw, trim), tw[:, None], 0.0)
+    got = (wk * tx).sum(0) / torch.clamp(wk.sum(0), min=1e-12)
+    torch.testing.assert_close(got, ops.trimmed_mean_ref(tx, tw, trim),
+                               rtol=0, atol=0)
+    np.testing.assert_allclose(got.numpy(),
+                               jref.trimmed_mean_ref(x, w, trim=trim),
+                               rtol=RTOL, atol=ATOL)
+
+
 def test_trimmed_average_keeps_the_honest_range():
     """8 honest rows and 2 rows of 10x noise, trim=2: every coordinate
     lies inside the honest rows' range."""

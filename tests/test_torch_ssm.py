@@ -31,6 +31,7 @@ from repro.nn import ssm as jssm
 from repro_torch import interop
 from repro_torch.kernels.ssd_scan import ops, ref
 from repro_torch.nn import ssm
+from torch_tf32 import matmul_tf32, tf32
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # (b, s, h, p, g, n, chunk): s % chunk != 0, g = 2, chunk > s, s == chunk
@@ -290,25 +291,6 @@ def test_kernel_function_backward_matches_jax_grad(case):
 # ---------------------------------------------------------------------------
 # The kernel's decomposition (csrc/ssd_scan.cu), mirrored in plain torch
 # ---------------------------------------------------------------------------
-
-def tf32(t, *, truncate=False):
-    """float32 -> TF32 (10 mantissa bits) by bit operations: the nearest
-    value (ties away from zero, as `cvt.rna.tf32.f32`), or `truncate`d."""
-    u = t.contiguous().view(torch.int32)
-    return ((u if truncate else u + 0x1000) & -0x2000).view(torch.float32)
-
-
-def matmul_tf32(passes):
-    """a @ b from TF32 operands on float32 sums, as the kernel's mma:
-    one pass of the nearest TF32 values, or three, of the kernel's split
-    a = big + small (big truncated, small = a - big to nearest)."""
-    def mm(a, b):
-        if passes == 1:
-            return tf32(a) @ tf32(b)
-        ab, bb = tf32(a, truncate=True), tf32(b, truncate=True)
-        return tf32(a - ab) @ bb + ab @ tf32(b - bb) + ab @ bb
-    return mm
-
 
 def decomposed_scan(x, dt, A, B, C, chunk, mm=torch.matmul):
     """The kernel's algorithm: the chunk cumsum of dt * A in float64;
