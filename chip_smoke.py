@@ -59,10 +59,11 @@ Phases, in order; any failure exits non-zero:
               e. the mesh layout: 10 ranks (one a worker) share this card
                  over gloo, `Trainer(layout="mesh")`: 2 serial and 1
                  parallel ring round, 1 pallas round, 1 FedGAN ring round,
-                 1 ring round under dropout and stragglers; per rank 37
+                 1 ring round under dropout and stragglers, then 2 fused
+                 ring rounds (best_channel, dropout); per rank 37
                  ring_accum launches a ring round and 1 wavg launch on the
                  pallas round, the ring's wire bytes, masks and weights
-                 as a stacked Trainer's
+                 as a stacked Trainer's of the same driver
               c. the backbone-GAN on the full-width mamba2-130m (K=4,
                  seq_len 512, token data): 2 serial rounds and 1
                  parallel round with best-channel scheduling at ratio
@@ -79,6 +80,24 @@ Phases, in order; any failure exits non-zero:
               take the most device time, and the device time of the
               SSDScan and FlashAttention backwards (record_function
               ranges)
+  7. fused    the fused driver (Step 1 on the card, each round after the
+              first replayed as one captured CUDA graph) against the host
+              driver, same seed, fading off: the DCGAN protocol (K=10,
+              3 serial and 3 parallel rounds, round_robin at 0.5), its
+              hostile path under the trimmed mean (3 rounds), FedGAN (2
+              rounds), the MLP-GAN (K=8, rounds a second over 50 rounds)
+              and mamba2-130m at full width (K=4, 3 rounds, peak device
+              memory), under cuDNN's deterministic algorithms: masks,
+              weights, every round's metrics and the parameters bitwise
+              equal, wallclocks within rtol 1e-6, a planted stale replay
+              caught by the same check, two host runs with cuDNN's
+              nondeterministic algorithms read beside it; seconds a
+              round, and one replayed round profiled: 1 wavg (0 under the trimmed mean, 1
+              trimmed_wavg), 528 of each ssd_scan kernel a mamba2 round,
+              device busy against wall. The first fused round runs
+              eagerly under set_sync_debug_mode("error"). granite-3-2b
+              stays on the host driver. (The mesh path 5e has a fused
+              run too: ranks run uncaptured, gloo goes through the host.)
 The last two lines are the `kernels` JSON line and
 {"ok": true, "device": {...}}.
 """
@@ -888,7 +907,7 @@ def train_hostile(torch, wavg_ops, robust_ops, spec, cfg, shards):
     for algorithm, faults, reducer, n_rounds, per_round in runs:
         trainer = Trainer(spec, pcfg, lambda g: dcgan.gan_init(g, cfg),
                           shards, seed=1, algorithm=algorithm, faults=faults,
-                          reducer=reducer)
+                          reducer=reducer, driver="host")
         label = (f"{algorithm}/{reducer.method if reducer else 'mean'}"
                  f"{'' if faults else ' (no faults)'}")
         for _ in range(n_rounds):
@@ -963,7 +982,7 @@ def train(torch, ops, robust_ops):
         pcfg = ProtocolConfig(n_devices=10, n_d=5, n_g=5, sample_size=128,
                               server_sample_size=128, optimizer="adam", **run)
         trainer = Trainer(spec, pcfg, lambda g: dcgan.gan_init(g, cfg),
-                          shards, seed=0)
+                          shards, seed=0, driver="host")
         n_gen = protocol.count_params(trainer.state["gen"])
         n_disc = protocol.count_params(trainer.state["disc"])
         if (n_gen, n_disc) != (3_576_704, 2_765_568):
@@ -1069,7 +1088,7 @@ def train_backbone(torch, wavg_ops, kernel_ops, kernel, bb):
                               lr_g=1e-3, optimizer="adam", **run)
         trainer = None                       # free the last run's state
         trainer = Trainer(spec, pcfg, lambda g: gan.gan_init(g, cfg),
-                          shards, seed=0)
+                          shards, seed=0, driver="host")
         n_gen = protocol.count_params(trainer.state["gen"])
         n_disc = protocol.count_params(trainer.state["disc"])
         if (n_gen, n_disc) != bb["sizes"]:
@@ -1154,6 +1173,19 @@ def _overlap_us(a, b):
     return total
 
 
+def _device_records(torch, prof):
+    """(name, start_ns, end_ns, is_user_annotation) of every record on the
+    device's timeline of a finished profile, read from the raw kineto
+    results: the profiler's event tree (`prof.events()`) takes minutes to
+    build for a mamba2 round's quarter of a million kernels and their
+    host records."""
+    return [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns(),
+             e.is_user_annotation())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA
+            and not e.is_hidden_event()]
+
+
 def profile_round(torch, trainer, label):
     """Where a round's time goes: one more round of `trainer` under
     torch.profiler (after the main paths' launch counts were read), its
@@ -1170,17 +1202,14 @@ def profile_round(torch, trainer, label):
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     spans, by_name, ranges = [], {}, {name: [] for name in BACKWARD_RANGES}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        interval = (e.time_range.start, e.time_range.end)
-        if e.is_user_annotation:     # a range's span, not device work
-            if e.name in ranges:
-                ranges[e.name].append(interval)
+    for name, start_ns, stop_ns, annotation in _device_records(torch, prof):
+        interval = (start_ns / 1e3, stop_ns / 1e3)          # microseconds
+        if annotation:               # a range's span, not device work
+            if name in ranges:
+                ranges[name].append(interval)
             continue
         spans.append(interval)
-        by_name[e.name] = (by_name.get(e.name, 0.0)
-                           + e.time_range.elapsed_us())
+        by_name[name] = by_name.get(name, 0.0) + interval[1] - interval[0]
     if not spans:
         print(f"profile of one {label} round: the profiler saw no device "
               f"events; device busy share not measured")
@@ -1529,18 +1558,24 @@ def check_small_mesh_rounds(torch):
 
 # The mesh path at full width: one rank per DCGAN worker (K=10) on this
 # card over gloo. (rounds, algorithm, avg_impl, seed, protocol settings,
-# fault program) of each Trainer, in order.
+# fault program, driver) of each Trainer, in order. The fused driver's
+# mesh rounds run uncaptured: gloo's collectives go through the host.
 MESH_RUNS = (
     (2, "proposed", "ring", 0, dict(schedule="serial", scheduler="all"),
-     None),
+     None, "host"),
     (1, "proposed", "ring", 0, dict(schedule="parallel",
                                     scheduler="best_channel",
-                                    scheduling_ratio=0.5), None),
+                                    scheduling_ratio=0.5), None, "host"),
     (1, "proposed", "pallas", 0, dict(schedule="serial", scheduler="all"),
-     None),
-    (1, "fedgan", "ring", 1, dict(schedule="serial", scheduler="all"), None),
+     None, "host"),
+    (1, "fedgan", "ring", 1, dict(schedule="serial", scheduler="all"), None,
+     "host"),
     (1, "proposed", "ring", 2, dict(schedule="serial", scheduler="all"),
-     dict(n_devices=10, dropout_prob=0.1, straggler_factor=2.0)),
+     dict(n_devices=10, dropout_prob=0.1, straggler_factor=2.0), "host"),
+    (2, "proposed", "ring", 3, dict(schedule="serial",
+                                    scheduler="best_channel",
+                                    scheduling_ratio=0.5),
+     dict(n_devices=10, dropout_prob=0.1, straggler_factor=2.0), "fused"),
 )
 
 
@@ -1550,7 +1585,7 @@ def _mesh_trainer(torch, shards, run, device, layout):
     from repro_torch.core.faults import FaultConfig
     from repro_torch.models import dcgan
     from repro_torch.models.specs import make_dcgan_spec
-    _, algorithm, impl, seed, settings, fcfg = run
+    _, algorithm, impl, seed, settings, fcfg, driver = run
     cfg = DCGANConfig()
     pcfg = ProtocolConfig(n_devices=10, n_d=5, n_g=5, sample_size=128,
                           server_sample_size=128, optimizer="adam",
@@ -1560,7 +1595,7 @@ def _mesh_trainer(torch, shards, run, device, layout):
                    algorithm=algorithm, layout=layout,
                    avg_impl=impl if layout == "mesh" else "pallas",
                    faults=FaultConfig(**fcfg) if fcfg else None,
-                   device=device)
+                   driver=driver, device=device)
 
 
 def mesh_rank(shards_path, rank, world_size, device):
@@ -1620,8 +1655,10 @@ def train_mesh(torch, shards, first_round):
     ring_accum launches on a ring round (1 + 4 chunks x 9 hops), one wavg
     launch on the pallas round, no trimmed_wavg launch, the ring's wire
     bytes as `ring_wire_bytes_per_rank`; masks and weights as a stacked
-    Trainer's of the same seed (its host driver only). The first ring
-    round is path 5a's first serial round (same seed and settings): its
+    Trainer's of the same seed and driver (the host driver's Step 1, or
+    the fused driver's whole rounds: fading, dropout and the schedule
+    from the same device slots on every rank). The first ring round is
+    path 5a's first serial round (same seed and settings): its
     objectives must be `first_round`'s to f32 round-off. Returns the
     path's launch counts summed over the ranks."""
     import tempfile
@@ -1639,8 +1676,13 @@ def train_mesh(torch, shards, first_round):
     for i, run in enumerate(MESH_RUNS):
         n_rounds, algorithm, impl = run[:3]
         ref = _mesh_trainer(torch, shards, run, "cuda", "stacked")
+        if ref.driver == "fused":            # whole rounds, on the card
+            ref.run(n_rounds)
         for t in range(n_rounds):
-            mask, weights, _ = ref.schedule(ref.sampler(t))
+            if ref.driver == "fused":
+                mask, weights = ref.history[t].mask, ref.history[t].weights
+            else:
+                mask, weights, _ = ref.schedule(ref.sampler(t))
             recs = [out[i]["rounds"][t] for out, _ in per_rank]
             for r, rec in enumerate(recs):
                 if not (np.array_equal(rec["mask"], mask)
@@ -1661,12 +1703,14 @@ def train_mesh(torch, shards, first_round):
                                          f"{rec['metrics']}")
             objective = recs[0]["metrics"].get("disc_objective")
             print(f"mesh {algorithm:8s} {run[4]['schedule']:8s} "
-                  f"avg_impl={impl:6s} round {t}: "
+                  f"avg_impl={impl:6s} {run[6]:5s} round {t}: "
                   + (f"D {objective:+.5f}  " if objective is not None
                      else "")
                   + f"weights {weights.tolist()}  {max(r['secs'] for r in recs):.3f} s"
                   f" (slowest rank), {recs[0]['counts'][3]} wire bytes a "
-                  f"rank")
+                  f"rank"
+                  + (", uncaptured (gloo through the host), masks as the "
+                     "stacked fused Trainer's" if run[6] == "fused" else ""))
         del ref
         for r, (out, _) in enumerate(per_rank):
             if not (out[i]["finite"] and out[i]["moved"] > 0):
@@ -1698,6 +1742,317 @@ def train_mesh(torch, shards, first_round):
           f"{launches['wavg']} wavg and 0 trimmed_wavg launches over the "
           f"10 ranks")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# 7. The fused driver against the host driver
+# ---------------------------------------------------------------------------
+
+# The kernels of a replayed round, by the names on the device timeline
+# (a regular expression each: wavg_kernel ends trimmed_wavg_kernel too).
+REPLAY_KERNELS = {"wavg": r"(?<!trimmed_)wavg_kernel",
+                  "trimmed_wavg": r"trimmed_wavg_kernel",
+                  **{name: name for name in SSD_KERNELS}}
+
+
+def profile_replay(torch, trainer, label):
+    """One more round of a fused `trainer`, whose graph is captured, under
+    torch.profiler's CUDA activity: the launches of each REPLAY_KERNELS
+    kernel in the replay (by name, from the device timeline: a replay
+    calls no Python wrapper), device busy against wall, device ops."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+    graph = trainer._graph
+    if not graph.captured:
+        raise AssertionError(f"{label}: the fused round is not captured")
+    replays = graph.replays
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.run(1)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    if graph.replays != replays + 1:
+        raise AssertionError(f"{label}: the profiled round was not a replay")
+    events = [e[:3] for e in _device_records(torch, prof) if not e[3]]
+    counts = {name: sum(1 for e in events if re.search(pattern, e[0]))
+              for name, pattern in REPLAY_KERNELS.items()}
+    busy_s = sum(b - a for a, b in _merged(e[1:] for e in events)) / 1e9
+    print(f"profile of one replayed {label} round: {wall_s:.4f} s wall, "
+          f"{busy_s:.4f} s device busy ({busy_s / wall_s:.3f}), "
+          f"{len(events)} device ops; kernels by name "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    return counts, busy_s, wall_s, len(events)
+
+
+def _timed_round(torch, trainer):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec = trainer.run(1)[-1]
+    torch.cuda.synchronize()
+    return rec, time.perf_counter() - t0
+
+
+def _params(trainer):
+    """The trainer's G and D parameters, on the host."""
+    from repro_torch.tree import tree_leaves
+    return [x.detach().cpu() for x in tree_leaves(
+        {"gen": trainer.state["gen"], "disc": trainer.state["disc"]})]
+
+
+def _max_diff(a, b):
+    return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+
+def driver_mismatch(host, fused):
+    """What differs between two runs' (records, parameters): masks,
+    weights, any round's metrics or the parameters not bit for bit, a
+    wallclock by more than float32 round-off (rtol 1e-6: the host
+    driver's channel runs in float64, the fused one in float32); None
+    if nothing does."""
+    import numpy as np
+    (h_recs, h_params), (f_recs, f_params) = host, fused
+    for h, f in zip(h_recs, f_recs):
+        if not (np.array_equal(h.mask, f.mask)
+                and np.array_equal(h.weights, f.weights)):
+            return (f"round {h.round}: mask {f.mask} weights {f.weights}, "
+                    f"host {h.mask} {h.weights}")
+        if f.metrics != h.metrics:
+            return f"round {h.round}: metrics {f.metrics}, host {h.metrics}"
+        if abs(f.wallclock_s - h.wallclock_s) > 1e-6 * h.wallclock_s:
+            return (f"round {h.round}: wallclock {f.wallclock_s}, host "
+                    f"{h.wallclock_s}")
+    diff = _max_diff(h_params, f_params)
+    return f"parameters differ by up to {diff:.3e}" if diff else None
+
+
+def compare_drivers(torch, label, make_trainer, n_rounds, *, want,
+                    peak=False, planted=False):
+    """`n_rounds` rounds of `make_trainer("host")`, then of
+    `make_trainer("fused")`, under cuDNN's deterministic algorithms
+    (`train_fused`), so that the two drivers run the same kernels on the
+    same draws: every round's masks, weights and metrics and the final
+    parameters must be equal bit for bit, wallclocks within rtol 1e-6
+    (`driver_mismatch`). Prints seconds a round for both (the fused
+    driver's first round is its eager warm-up plus the capture) and,
+    with `peak`, peak device memory; then profiles one replayed round,
+    whose kernels must launch `want` times. With `planted`, the check
+    must also fail on a fused run whose slots keep round 0's draws (a
+    replay that is not refilled). Returns a summary for the `fused`
+    JSON line."""
+    out, runs = {}, {}
+    for driver in ("host", "fused"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = make_trainer(driver)
+        if trainer.driver != driver:
+            raise AssertionError(f"{label}: driver {trainer.driver}")
+        recs, secs = zip(*(_timed_round(torch, trainer)
+                           for _ in range(n_rounds)))
+        out[f"{driver}_s"] = list(secs)
+        if peak:
+            out[f"{driver}_peak_gib"] = (torch.cuda.max_memory_allocated()
+                                         / 2**30)
+        runs[driver] = (recs, _params(trainer))
+        if driver == "host":
+            del trainer
+    graph = trainer._graph
+    if not (graph.captured and graph.eager_rounds == 1
+            and graph.replays == n_rounds - 1):
+        raise AssertionError(f"{label}: eager {graph.eager_rounds}, "
+                             f"replays {graph.replays}")
+    wrong = driver_mismatch(runs["host"], runs["fused"])
+    if wrong:
+        raise AssertionError(f"{label}: the fused driver differs from the "
+                             f"host driver: {wrong}")
+    if planted:
+        stale = make_trainer("fused")
+        first = stale.sampler
+        stale.sampler = lambda t: first(0)
+        recs = stale.run(n_rounds)
+        stale_params = _params(stale)
+        caught = driver_mismatch(runs["host"], (recs, stale_params))
+        del stale
+        if not caught:
+            raise AssertionError(f"{label}: the check passed a replay "
+                                 f"whose slots kept round 0's draws")
+        out.update(planted_caught=caught, planted_param_diff=_max_diff(
+            runs["host"][1], stale_params))
+    walls = max(abs(f.wallclock_s - h.wallclock_s) / h.wallclock_s
+                for h, f in zip(runs["host"][0], runs["fused"][0]))
+    steady = out["fused_s"][1:]
+    print(f"fused {label}: masks, weights, every round's metrics and the "
+          f"parameters bitwise equal to the host driver's in {n_rounds} "
+          f"rounds ({[h.weights.tolist() for h in runs['host'][0]]}), "
+          f"wallclock within {walls:.1e} (rtol 1e-6)"
+          + (f"; a planted stale replay is caught ({caught}; its "
+             f"parameters {out['planted_param_diff']:.3e} away)"
+             if planted else "")
+          + f"; s/round host {[round(x, 4) for x in out['host_s']]}, "
+          f"fused first (eager under set_sync_debug_mode('error') + "
+          f"capture) {out['fused_s'][0]:.4f}, replayed "
+          f"{[round(x, 4) for x in steady]}"
+          + (f"; peak device memory host {out['host_peak_gib']:.2f} GiB, "
+             f"fused {out['fused_peak_gib']:.2f} GiB" if peak else ""))
+    counts, busy_s, wall_s, n_ops = profile_replay(torch, trainer, label)
+    for name, n in want.items():
+        if counts[name] != n:
+            raise AssertionError(f"{label}: {counts[name]} {name} launches "
+                                 f"in a replayed round, expected {n}")
+    out.update(wallclock_rel=walls, replay_counts=counts,
+               replay_busy_s=busy_s, replay_wall_s=wall_s,
+               replay_device_ops=n_ops)
+    return out
+
+
+def nondeterministic_floor(torch, make_trainer, n_rounds):
+    """Two host-driver runs of `make_trainer("host")` with cuDNN free to
+    pick nondeterministic algorithms (as in phases 5 and 6): how far
+    apart its parameters land with nothing else changed."""
+    torch.backends.cudnn.deterministic = False
+    try:
+        params = []
+        for _ in range(2):
+            trainer = make_trainer("host")
+            trainer.run(n_rounds)
+            params.append(_params(trainer))
+            del trainer
+    finally:
+        torch.backends.cudnn.deterministic = True
+    return _max_diff(*params)
+
+
+def mlp_rounds_per_s(torch, n_rounds=50):
+    """The JAX package's driver benchmark model (models/gan.py's MLP-GAN:
+    d_z 8, 16 hidden, 64-dim data, K=8, n_d=n_g=1, m=M=4, 16-bit uplink)
+    for `n_rounds` rounds under each driver, as one `run` call, after
+    one round (the fused driver's warm-up and capture): rounds a second,
+    and the two runs held equal by `driver_mismatch`."""
+    import numpy as np
+    from repro_torch.configs import ProtocolConfig
+    from repro_torch.core import Trainer
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.models import gan
+    k = 8
+    pcfg = ProtocolConfig(n_devices=k, n_d=1, n_g=1, sample_size=4,
+                          server_sample_size=4, lr_d=1e-3, lr_g=1e-3,
+                          scheduler="round_robin", scheduling_ratio=0.5)
+    data = np.random.default_rng(9).standard_normal((k, 8, 64)).astype(
+        np.float32)
+    out, runs = {}, {}
+    for driver in ("host", "fused"):
+        trainer = Trainer(gan.mlp_gan_spec(d_z=8), pcfg,
+                          lambda g: gan.mlp_gan_init(g, d_z=8, d_hidden=16,
+                                                     d_data=64),
+                          data, seed=0, driver=driver,
+                          channel_cfg=ChannelConfig(n_devices=k,
+                                                    fading=False))
+        trainer.run(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        recs = trainer.run(n_rounds)
+        torch.cuda.synchronize()
+        out[driver] = n_rounds / (time.perf_counter() - t0)
+        runs[driver] = (recs, _params(trainer))
+    wrong = driver_mismatch(runs["host"], runs["fused"])
+    if wrong:
+        raise AssertionError(f"MLP-GAN: the fused driver differs from the "
+                             f"host driver: {wrong}")
+    print(f"fused MLP-GAN (K={k}, 16-bit uplink), {n_rounds} rounds each: "
+          f"host {out['host']:.1f} rounds/s, fused {out['fused']:.1f} "
+          f"rounds/s ({out['fused'] / out['host']:.2f}x); masks, weights, "
+          f"metrics and parameters bitwise equal")
+    return out
+
+
+def train_fused(torch, shards, card):
+    """Phase 7 on `card` (nvidia-smi's name and power limit, printed with
+    the results): each run under the host driver, then the fused driver,
+    from the same seed, fading off (round_robin masks deterministic):
+    the full DCGAN protocol (K=10, serial and parallel, round_robin at
+    0.5), its hostile-worker path under the trimmed mean (dropout from
+    the shared slots), FedGAN, the MLP-GAN's rounds a second, and the
+    full-width mamba2-130m (K=4, with its peak memory)."""
+    from repro_torch.configs import (DCGANConfig, ProtocolConfig,
+                                     get_arch_config)
+    from repro_torch.core import Trainer
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.core.faults import FaultConfig
+    from repro_torch.data import make_token_dataset, partition
+    from repro_torch.kernels.robust_avg.ops import RobustConfig
+    from repro_torch.models import dcgan, gan
+    from repro_torch.models.specs import make_backbone_spec, make_dcgan_spec
+
+    cfg = DCGANConfig()
+    spec = make_dcgan_spec(cfg, gen_loss_variant="nonsaturating")
+    results = {}
+
+    def dcgan_run(driver, algorithm="proposed", faults=None, reducer=None,
+                  **settings):
+        pcfg = ProtocolConfig(n_devices=10, n_d=5, n_g=5, sample_size=128,
+                              server_sample_size=128, optimizer="adam",
+                              **settings)
+        return Trainer(spec, pcfg, lambda g: dcgan.gan_init(g, cfg), shards,
+                       seed=0, algorithm=algorithm, faults=faults,
+                       reducer=reducer, driver=driver,
+                       channel_cfg=ChannelConfig(n_devices=10, fading=False))
+
+    rr = dict(scheduler="round_robin", scheduling_ratio=0.5)
+    runs = [
+        ("DCGAN serial", dict(schedule="serial", **rr), 3, {"wavg": 1}),
+        ("DCGAN parallel", dict(schedule="parallel", **rr), 3, {"wavg": 1}),
+        ("DCGAN hostile trimmed_mean", dict(
+            schedule="serial", scheduler="all", faults=FaultConfig(**HOSTILE),
+            reducer=RobustConfig("trimmed_mean", trim=2)), 3,
+         {"wavg": 0, "trimmed_wavg": 1}),
+        ("DCGAN FedGAN", dict(schedule="serial", algorithm="fedgan", **rr), 2,
+         {"wavg": 2}),
+    ]
+    bb = MAMBA
+    mcfg = get_arch_config(bb["arch"])
+    mspec = make_backbone_spec(mcfg, bb["seq"], remat=False,
+                               gen_loss_variant="nonsaturating")
+    toks, _ = make_token_dataset(bb["k"] * 32, bb["seq"], mcfg.vocab)
+    tshards = partition(toks, bb["k"])
+    del toks
+
+    def mamba_run(driver):
+        pcfg = ProtocolConfig(n_devices=bb["k"], n_d=bb["n_d"],
+                              n_g=bb["n_g"], sample_size=bb["m"],
+                              server_sample_size=bb["m"], lr_d=1e-3,
+                              lr_g=1e-3, optimizer="adam", schedule="serial",
+                              scheduler="round_robin", scheduling_ratio=0.5)
+        return Trainer(mspec, pcfg, lambda g: gan.gan_init(g, mcfg), tshards,
+                       seed=0, driver=driver,
+                       channel_cfg=ChannelConfig(n_devices=bb["k"],
+                                                 fading=False))
+
+    # cuDNN's deterministic algorithms: the DCGAN's convolutions then
+    # give the same bits in every run, so the drivers are held bitwise
+    # (nondeterministic_floor reads what they give otherwise)
+    torch.backends.cudnn.deterministic = True
+    try:
+        for label, settings, n_rounds, want in runs:
+            make = functools.partial(dcgan_run, **settings)
+            results[label] = compare_drivers(
+                torch, label, make, n_rounds, want=want,
+                planted=label == "DCGAN serial")
+            if label == "DCGAN serial":
+                floor = nondeterministic_floor(torch, make, n_rounds)
+                results[label]["nondeterministic_host_diff"] = floor
+                print(f"DCGAN serial, two host runs with cuDNN's "
+                      f"nondeterministic algorithms allowed: parameters "
+                      f"{floor:.3e} apart after {n_rounds} rounds")
+        results["MLP-GAN rounds/s"] = mlp_rounds_per_s(torch)
+        results["mamba2-130m"] = compare_drivers(
+            torch, "mamba2-130m", mamba_run, 3, peak=True,
+            want={"wavg": 1,
+                  **{name: bb["per_round"] for name in SSD_KERNELS}})
+    finally:
+        torch.backends.cudnn.deterministic = False
+    print(f"fused phase on {card}; granite-3-2b stays on the host driver")
+    print(json.dumps({"fused": results}, default=float))
+    return results
 
 
 T_START = time.perf_counter()
@@ -1790,7 +2145,8 @@ def main() -> int:
     del trainer
     torch.cuda.empty_cache()
     stamp("profile: DCGAN")
-    mesh = train_mesh(torch, setup[2], first_round)
+    shards = setup[2]
+    mesh = train_mesh(torch, shards, first_round)
     del setup
     import multiprocessing
     print(f"after the mesh path: {len(multiprocessing.active_children())} "
@@ -1831,7 +2187,14 @@ def main() -> int:
         entry["launches"] = sum(paths.values())
         entry["launches_by_path"] = paths
     profile_round(torch, backbone_trainer, "granite-3-2b backbone-GAN")
+    del backbone_trainer
+    torch.cuda.empty_cache()
     stamp("profile: granite-3-2b")
+
+    # 7. fused: the fused driver against the host driver (granite-3-2b
+    # stays on the host driver)
+    train_fused(torch, shards, card)
+    stamp("fused")
 
     print(json.dumps({"kernels": [wavg, trimmed, ssd, flash, ring]}))
     print(json.dumps({"ok": True, "device": {

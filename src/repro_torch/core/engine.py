@@ -3,24 +3,51 @@ the wireless channel simulator, wall-clock accounting, and periodic
 evaluation — the paper's experimental harness (Figs 3-6).
 
 Port of `repro.core.engine.Trainer`: algorithms "proposed" and
-"fedgan" under the host driver (one round per call, numpy scheduling and
-channel state, as in the JAX package's host driver, whose masks, weights
-and wallclock this one matches bit for bit), with the hostile-worker
-regime: fault programs (`faults=`) and robust reducers (`reducer=`), on
-two layouts:
+"fedgan", with the hostile-worker regime: fault programs (`faults=`) and
+robust reducers (`reducer=`), under two drivers on two layouts:
+
+                    layout="stacked"          layout="mesh"
+  proposed       host + fused              host + fused
+  fedgan         host + fused              host + fused
+
+DRIVER — how rounds are dispatched:
+
+  driver="fused" - Step 1 (scheduling, channel timing, dropout and
+      stragglers) on the device, in one round body with Steps 2-5 and the
+      wallclock (`protocol.rounds`). On the stacked layout on CUDA the
+      body runs eagerly once, under `set_sync_debug_mode("error")`, and
+      then replays once a round as ONE captured CUDA graph
+      (`core/graphs.py`), the counterpart of the JAX package's one XLA
+      dispatch a chunk; on the CPU and on the mesh layout it runs
+      uncaptured. Round t's draws come from the same streams as the host
+      driver's; fading and the random policy draw from a per-round stream
+      of their own. FID runs on the host at chunk boundaries (the JAX
+      package's path for a fid_fn it cannot trace).
+  driver="host"  - one round per call with numpy scheduling and channel
+      state, as the JAX package's host driver, whose masks, weights and
+      wallclock it matches bit for bit: the equivalence oracle of the
+      fused driver, whose masks and weights equal its own for
+      deterministic policies with fading off.
+  driver="auto" (default) - as in the JAX package: "fused" for both
+      algorithms (its centralized baseline, the one algorithm it runs on
+      the host driver, is not ported).
+
+LAYOUT:
 
   layout="stacked" - the K devices stacked on one card.
   layout="mesh"    - one rank of a `torch.distributed` group per device
       (`repro_torch.launch.mesh.spawn` starts them; `core/shard_round.py`
       runs the round), at tp=1. Every rank builds its own Trainer once
-      the group exists and runs the same host driver from the same seeded
+      the group exists and runs the same driver from the same seeded
       streams, so masks, weights and history agree on every rank and with
-      a stacked Trainer of the same seed. `avg_impl` picks Algorithm 2's
-      collective: "pallas" (flat all-gather, wavg kernel), "jnp" (per-leaf
-      all-reduce) or "ring" (the chunked ring, ring_accum kernel).
+      a stacked Trainer of the same seed and driver. `avg_impl` picks
+      Algorithm 2's collective: "pallas" (flat all-gather, wavg kernel),
+      "jnp" (per-leaf all-reduce) or "ring" (the chunked ring, ring_accum
+      kernel).
 
-Every other choice of the JAX Trainer — the centralized baseline, the
-fused driver, tensor parallelism, microbatching — raises a ValueError.
+Every other choice of the JAX Trainer's constructor — the centralized
+baseline, tensor parallelism, microbatching — raises a ValueError;
+checkpoints are not ported yet (ROADMAP A item 5).
 """
 from __future__ import annotations
 
@@ -34,15 +61,18 @@ import torch.distributed as dist
 
 from repro_torch.configs.base import ProtocolConfig
 from repro_torch.core import faults as faults_lib
-from repro_torch.core import fedgan, protocol, shard_round
+from repro_torch.core import fedgan, graphs, protocol, shard_round
 from repro_torch.core.channel import (ChannelConfig, ChannelSimulator,
                                       round_wallclock)
+from repro_torch.core.device_channel import DeviceChannel
+from repro_torch.core.device_scheduling import DeviceScheduler
 from repro_torch.core.scheduling import SchedulerState, schedule_round
 from repro_torch.device import resolve_device
 from repro_torch.kernels.robust_avg.ops import ROBUST_METHODS, RobustConfig
 from repro_torch.tree import tree_index
 
 ALGORITHMS = ("proposed", "fedgan")
+DRIVERS = ("auto", "fused", "host")
 LAYOUTS = ("stacked", "mesh")
 # Algorithm-2 collectives of the mesh layout (core/averaging.py).
 MESH_AVG_IMPLS = ("pallas", "jnp", "ring")
@@ -57,6 +87,7 @@ class RoundRecord:
     fid: Optional[float] = None
     mask: Optional[np.ndarray] = None      # (K,) bool — scheduled devices
     weights: Optional[np.ndarray] = None   # (K,) float32 — Algorithm 2's
+                                           # weights (0: not averaged)
 
 
 def _check_scope(algorithm, driver, layout, tp, pcfg):
@@ -64,9 +95,8 @@ def _check_scope(algorithm, driver, layout, tp, pcfg):
     if algorithm not in ALGORITHMS:
         raise ValueError(f"algorithm={algorithm!r} is not ported; the "
                          f"port runs {ALGORITHMS}")
-    if driver not in ("auto", "host"):
-        raise ValueError(f"driver={driver!r} is not ported; the port "
-                         f"runs the host driver ('host' or 'auto')")
+    if driver not in DRIVERS:
+        raise ValueError(f"unknown driver {driver!r} (have {DRIVERS})")
     if layout not in LAYOUTS:
         raise ValueError(f"layout={layout!r} is not ported; the port "
                          f"runs {LAYOUTS}")
@@ -136,6 +166,8 @@ class Trainer:
     seed: seeds the initial parameters and every round's draws.
     faults: optional `faults.FaultConfig` (hostile workers); reducer:
     "mean", a robust method name or a `RobustConfig`.
+    driver: "fused", "host" or "auto" (module docstring); the resolved
+    driver is `self.driver`.
     layout: "stacked", or "mesh" inside a process group of
     pcfg.n_devices ranks (`group`, the default group when None), where
     the rank keeps its own row of `data_stacked` and its own optimizer
@@ -160,6 +192,9 @@ class Trainer:
         _check_scope(algorithm, driver, layout, tp, pcfg)
         reducer = _check_faults(faults, reducer, pcfg)
         _check_avg_impl(avg_impl, layout, tp, faults, reducer)
+        # "auto" as `repro.core.engine.Trainer` resolves it: every ported
+        # algorithm has a fused driver
+        self.driver = "fused" if driver == "auto" else driver
         self.layout, self.avg_impl = layout, avg_impl
         self.rank = (_mesh_rank(group, pcfg.n_devices) if layout == "mesh"
                      else None)
@@ -196,20 +231,24 @@ class Trainer:
         self.disc_step_flops = disc_step_flops
         self.gen_step_flops = gen_step_flops
 
-        make_state, payload_fn, stacked_keys, round_fn, mesh_fn = (
+        (make_state, payload_fn, stacked_keys, round_fn, rounds_fn,
+         mesh_fn, mesh_rounds_fn) = (
             (fedgan.make_fedgan_state, shard_round.FEDGAN_PAYLOAD,
              shard_round.FEDGAN_STACKED_KEYS, fedgan.fedgan_round,
-             shard_round.fedgan_mesh_round) if self._fedgan else
+             fedgan.fedgan_rounds, shard_round.fedgan_mesh_round,
+             shard_round.fedgan_mesh_rounds) if self._fedgan else
             (protocol.make_train_state, shard_round.PROPOSED_PAYLOAD,
              shard_round.PROPOSED_STACKED_KEYS, protocol.gan_round,
-             shard_round.mesh_round))
+             protocol.gan_rounds, shard_round.mesh_round,
+             shard_round.mesh_rounds))
         if self.rank is None:
-            self._round_fn = round_fn
+            self._round_fn, self._rounds_fn = round_fn, rounds_fn
             self.state = make_state(init_fn, pcfg, self.n_devices,
                                     seed=seed, device=self.device)
         else:
-            self._round_fn = functools.partial(mesh_fn, group=group,
-                                               avg_impl=avg_impl)
+            self._round_fn, self._rounds_fn = (
+                functools.partial(fn, group=group, avg_impl=avg_impl)
+                for fn in (mesh_fn, mesh_rounds_fn))
             # one worker's optimizer states, unstacked
             state = make_state(init_fn, pcfg, 1, seed=seed,
                                device=self.device)
@@ -227,10 +266,86 @@ class Trainer:
             n_params=self._disc_nparams + (
                 self._gen_nparams if self._fedgan else 0),
             device=self.device, faults=faults)
+        if self.driver == "fused":
+            self.device_channel = DeviceChannel(channel_cfg, self.device)
+            self.device_sched = DeviceScheduler(
+                policy=pcfg.scheduler, n_devices=pcfg.n_devices,
+                ratio=pcfg.scheduling_ratio)
+            self._sched_carry = self.device_sched.init_carry(self.device)
+            # one captured graph for the Trainer's life: stacked on CUDA
+            self._graph = graphs.RoundGraph(
+                capture=self.device.type == "cuda" and self.rank is None)
         self.history: list[RoundRecord] = []
         self._clock = 0.0
         self._round_index = 0
 
+    def run(self, n_rounds: int, *, eval_every: int = 0,
+            fid_fn: Optional[Callable] = None, verbose: bool = False):
+        """Run `n_rounds` rounds with the Trainer's driver; returns the
+        history. fid_fn(gen_params, generator) runs on rounds t with
+        (t + 1) % eval_every == 0, with a generator seeded from (seed,
+        STREAM_FID, t)."""
+        run = self._run_fused if self.driver == "fused" else self._run_host
+        return run(n_rounds, eval_every=eval_every, fid_fn=fid_fn,
+                   verbose=verbose)
+
+    def _fid(self, fid_fn, eval_every, t):
+        if fid_fn is None or not eval_every or (t + 1) % eval_every:
+            return None
+        return float(fid_fn(self.state["gen"], protocol.seeded_generator(
+            self.seed, protocol.STREAM_FID, t, self.device)))
+
+    # ------------------------------------------------------------------
+    # fused driver: Step 1 on the device, a captured graph a round
+    # ------------------------------------------------------------------
+    def _eval_boundaries(self, n_rounds: int, eval_every: int,
+                         have_fid: bool):
+        """Chunk lengths whose boundaries land on the FID rounds (the
+        JAX package's path for a fid_fn it cannot trace)."""
+        if not (have_fid and eval_every):
+            return [n_rounds] if n_rounds else []
+        chunks, done = [], 0
+        start = self._round_index
+        while done < n_rounds:
+            # next multiple of eval_every past the current absolute round
+            nxt = ((start + done) // eval_every + 1) * eval_every
+            chunks.append(min(nxt - (start + done), n_rounds - done))
+            done += chunks[-1]
+        return chunks
+
+    def _run_fused(self, n_rounds: int, *, eval_every: int,
+                   fid_fn: Optional[Callable], verbose: bool):
+        for chunk in self._eval_boundaries(n_rounds, eval_every,
+                                           fid_fn is not None):
+            start = self._round_index
+            self.state, self._sched_carry, out = self._rounds_fn(
+                self.spec, self.pcfg, self.state, self.data, chunk,
+                channel=self.device_channel, scheduler=self.device_sched,
+                sampler=self.sampler, seed=self.seed,
+                sched_carry=self._sched_carry, start_round=start,
+                disc_step_flops=self.disc_step_flops,
+                gen_step_flops=self.gen_step_flops,
+                uplink_bits=self._uplink_bits, faults=self.faults,
+                reducer=self.reducer, graph=self._graph)
+            for i in range(chunk):
+                t = start + i
+                wall = float(out["wallclock_s"][i])
+                self._clock += wall
+                rec = RoundRecord(
+                    t, wall, self._clock,
+                    {k: float(v[i]) for k, v in out["metrics"].items()},
+                    self._fid(fid_fn, eval_every, t),
+                    mask=out["mask"][i].copy(),
+                    weights=out["weights"][i].copy())
+                self.history.append(rec)
+                if verbose:
+                    self._print_record(rec)
+            self._round_index += chunk
+        return self.history
+
+    # ------------------------------------------------------------------
+    # host driver: one round a call (the oracle)
+    # ------------------------------------------------------------------
     def schedule(self, draws: protocol.RoundDraws):
         """Step 1 of the next round, on the host (numpy): the channel
         state, the scheduling mask, the round's timing and Algorithm 2's
@@ -257,9 +372,8 @@ class Trainer:
                            0.0).astype(np.float32)
         return mask, weights, timing
 
-    def run(self, n_rounds: int, *, eval_every: int = 0,
-            fid_fn: Optional[Callable] = None, verbose: bool = False):
-        """Run `n_rounds` rounds, one at a time (the host driver)."""
+    def _run_host(self, n_rounds: int, *, eval_every: int,
+                  fid_fn: Optional[Callable], verbose: bool):
         pcfg = self.pcfg
         for _ in range(n_rounds):
             t = self._round_index
@@ -276,14 +390,9 @@ class Trainer:
             wall = round_wallclock(timing, mask, schedule=pcfg.schedule,
                                    fedgan=self._fedgan)
             self._clock += wall
-            fid = None
-            if fid_fn is not None and eval_every and (t + 1) % eval_every == 0:
-                fid = float(fid_fn(self.state["gen"],
-                                   protocol.seeded_generator(
-                                       self.seed, protocol.STREAM_FID, t,
-                                       self.device)))
             rec = RoundRecord(t, wall, self._clock,
-                              {k: float(v) for k, v in metrics.items()}, fid,
+                              {k: float(v) for k, v in metrics.items()},
+                              self._fid(fid_fn, eval_every, t),
                               mask=mask.copy(), weights=weights)
             self.history.append(rec)
             self._round_index += 1

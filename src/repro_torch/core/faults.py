@@ -9,10 +9,12 @@ it:
     permutation, then one uniform draw), so the roles match it bit for
     bit. A compromised device stays compromised.
   * PER-ROUND REALIZATIONS enter as explicit draws (`protocol.RoundDraws`):
-    the dropout uniforms (K,) are a host numpy array, so the dropout
-    mask is known before channel timing with no device sync; the
-    byzantine normals are drawn on the device, one row per byzantine
-    worker. Tests pass the JAX package's own draws instead.
+    the dropout uniforms (K,) are a host numpy array, so the host
+    driver knows the dropout mask before channel timing with no device
+    sync (the fused driver copies them into a device slot and takes
+    `dropout_mask_device`); the byzantine normals are drawn on the
+    device, one row per byzantine worker. Tests pass the JAX package's
+    own draws instead.
 
 Fault axes:
 
@@ -36,6 +38,7 @@ the robust reducers (`repro_torch.kernels.robust_avg`) through
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -76,6 +79,13 @@ class FaultConfig:
         return self.n_free_riders > 0 or self.n_byzantine > 0
 
 
+class DeviceRoles(NamedTuple):
+    """A program's static roles as tensors on one device."""
+    compute_mult: torch.Tensor      # (K,) float32
+    free_rider_rows: torch.Tensor   # int64 device indices
+    byzantine_rows: torch.Tensor    # int64 device indices
+
+
 class FaultProgram:
     """Realized fault program: static role arrays (numpy, host) and the
     per-round realizations of the round's draws. Build it through
@@ -101,6 +111,21 @@ class FaultProgram:
         self.compute_mult_np = compute_mult.astype(np.float64)
         self.free_rider_idx = np.flatnonzero(free_rider).tolist()
         self.byzantine_idx = np.flatnonzero(byzantine).tolist()
+        self._roles: dict = {}
+
+    def roles_on(self, device) -> DeviceRoles:
+        """The static roles as tensors on `device`, copied there once: a
+        captured round reads them and copies nothing from the host."""
+        device = torch.device(device)
+        roles = self._roles.get(device)
+        if roles is None:
+            rows = lambda idx: torch.tensor(idx, dtype=torch.int64,
+                                            device=device)
+            roles = self._roles[device] = DeviceRoles(
+                torch.tensor(self.compute_mult_np, dtype=torch.float32,
+                             device=device),
+                rows(self.free_rider_idx), rows(self.byzantine_idx))
+        return roles
 
     @property
     def corrupts(self) -> bool:
@@ -118,6 +143,19 @@ class FaultProgram:
         # compared in float32, as the JAX package compares its draw
         return (np.asarray(drop_u, np.float32)
                 < np.float32(self.cfg.dropout_prob))
+
+    def dropout_mask_device(self, drop_u):
+        """`dropout_mask` on the device, from the round's (K,) float32
+        uniforms `drop_u` (a tensor; None without dropout), compared in
+        float32. The counterpart of the JAX package's
+        `FaultProgram.dropout_mask`, which draws its own uniforms."""
+        if self.cfg.dropout_prob <= 0.0:
+            return None
+        if drop_u is None or tuple(drop_u.shape) != (self.cfg.n_devices,):
+            raise ValueError(f"dropout_prob={self.cfg.dropout_prob} needs "
+                             f"the round's ({self.cfg.n_devices},) dropout "
+                             f"uniforms")
+        return drop_u.float() < float(np.float32(self.cfg.dropout_prob))
 
 
 def byzantine_noise(normals, payload, scale: float):
@@ -153,15 +191,17 @@ def corrupt_upload(prog: FaultProgram, payload_stacked, byz_normals,
     UNSTACKED `stale` cached global, byzantine rows by scaled noise.
     `byz_normals` is (n_byzantine, N), row i for the i-th byzantine
     device in index order. The roles are host constants, so the rows
-    are picked with no device sync."""
+    are picked by index tensors kept on the device (`roles_on`), with
+    no device sync."""
     cfg = prog.cfg
+    roles = prog.roles_on(tree_leaves(payload_stacked)[0].device)
     replace = []                  # (device rows, their leaves' values)
     if cfg.n_free_riders > 0 and stale is not None:
-        replace.append((prog.free_rider_idx, stale))
+        replace.append((roles.free_rider_rows, stale))
     if cfg.n_byzantine > 0:
         one = tree_map(lambda x: x[0], payload_stacked)
         _check_byz_normals(cfg, one, byz_normals)
-        replace.append((prog.byzantine_idx,
+        replace.append((roles.byzantine_rows,
                         byzantine_noise(byz_normals, one, cfg.byz_scale)))
     if not replace:
         return payload_stacked

@@ -23,7 +23,7 @@ from repro_torch.core import losses, quantize
 from repro_torch.core.averaging import broadcast_like, weighted_average
 from repro_torch.core.protocol import (GanModelSpec, RoundDraws,
                                        _check_draws, _value_and_grad,
-                                       corrupt_uploads)
+                                       corrupt_uploads, rounds)
 from repro_torch.device import resolve_device
 from repro_torch.optim import apply_updates, make_optimizer
 from repro_torch.tree import tree_index, tree_map, tree_stack
@@ -106,6 +106,19 @@ def fedgan_round(spec: GanModelSpec, pcfg: ProtocolConfig, state,
     if "fault" in state:
         new_state["fault"] = {"stale": prev}
     return new_state, {"participation": (weights.float() > 0).float().mean()}
+
+
+def fedgan_rounds(spec: GanModelSpec, pcfg: ProtocolConfig, state,
+                  data_stacked, n_rounds: int, *, faults=None, reducer=None,
+                  **kw):
+    """`n_rounds` fused FedGAN rounds (see `protocol.rounds`, which takes
+    the keyword arguments): the same engine as the proposed protocol,
+    with FedGAN's two-net upload payload and its Fig. 5 timing and
+    wallclock. Port of `repro.core.fedgan.fedgan_rounds_scan`."""
+    round_fn = lambda st, d, w, draws: fedgan_round(
+        spec, pcfg, st, d, w, draws, faults=faults, reducer=reducer)
+    return rounds(round_fn, pcfg, state, data_stacked, n_rounds,
+                  fedgan=True, faults=faults, **kw)
 
 
 def make_fedgan_state(init_fn, pcfg: ProtocolConfig, n_devices: int, *,

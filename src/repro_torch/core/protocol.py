@@ -24,6 +24,23 @@ dropout uniforms (on the host) and the byzantine devices' normals.
 `DrawSampler` makes them from seeded generators; tests pass the JAX
 package's own draws instead, so both packages compute the same round.
 
+FUSED ROUND ENGINE: `rounds` runs R complete rounds of ANY round
+function with Step 1 on the device: scheduling (`core.device_scheduling`),
+channel timing and straggler exclusion (`core.device_channel`), the
+round's model math and the Fig. 1/Fig. 2 wall-clock composition, as one
+round body over tensors at fixed addresses (`RoundSlots`), replayed as a
+captured CUDA graph on the stacked layout (`core.graphs`). Every random
+draw is made before its round, into the slots: the model's draws from
+the same streams as the host driver (so both drivers train on the same
+draws), the dropout uniforms, and, from the stream (seed,
+STREAM_CHANNEL, t), the fading exponentials and the random policy's
+permutation. `gan_rounds` instantiates it for the proposed protocol and
+`fedgan.fedgan_rounds` for FedGAN. The host driver
+(`engine.Trainer(driver="host")`) is the equivalence oracle: for
+deterministic policies with fading off, the fused masks and weights
+equal its own bit for bit, and the wallclock, parameters and metrics
+agree to float32 round-off.
+
 HOSTILE WORKERS: `gan_round(faults=, reducer=)` corrupts the uploads
 after the quantized uplink (free-riders replay the stale round-start
 global, byzantine devices upload scaled noise) and reduces them with a
@@ -32,12 +49,14 @@ robust reducer (`kernels/robust_avg`) when one is given.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ProtocolConfig
+from repro_torch.core import device_channel, device_scheduling, graphs
 from repro_torch.core import faults as faults_lib
 from repro_torch.core import losses, quantize
 from repro_torch.core.averaging import broadcast_like, weighted_average
@@ -48,10 +67,12 @@ from repro_torch.tree import (tree_index, tree_leaves, tree_map, tree_stack,
 
 # Stream tags mixed with the run's seed (`seeded_generator`): one stream
 # per round for the model's randomness, one per round for FID noise, one
-# per round for the fault program's dropout (a host numpy stream).
+# per round for the fault program's dropout (a host numpy stream), one
+# per round for the fused driver's channel (fading, random permutation).
 STREAM_ROUND = 0
 STREAM_FID = 1
 STREAM_DROPOUT = 2
+STREAM_CHANNEL = 3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,27 +144,44 @@ class DrawSampler:
         self.seed, self.n_local, self.n_params = seed, n_local, n_params
         self.device, self.faults = device, faults
 
-    def __call__(self, t: int) -> RoundDraws:
+    def __call__(self, t: int, out: Optional[RoundDraws] = None
+                 ) -> RoundDraws:
+        """Round t's draws. With `out` (draws of this sampler's shapes,
+        e.g. the fused driver's slots) they are written into its tensors
+        in place, the same values; the result holds those tensors and
+        the round's host dropout uniforms."""
         pcfg = self.pcfg
         m, big_m = pcfg.sample_size, pcfg.server_sample_size
         gen = seeded_generator(self.seed, STREAM_ROUND, t, self.device)
-        z = torch.stack([self.spec.sample_z(gen, max(m, big_m))
-                         for _ in range(max(pcfg.n_d, pcfg.n_g))])
+        z_dev, z_srv = (None, None) if out is None else (out.z_dev,
+                                                         out.z_srv)
+        for j in range(max(pcfg.n_d, pcfg.n_g)):
+            z_j = self.spec.sample_z(gen, max(m, big_m))
+            if z_dev is None:
+                z_dev = z_j.new_empty((pcfg.n_d, m) + z_j.shape[1:])
+                z_srv = z_j.new_empty((pcfg.n_g, big_m) + z_j.shape[1:])
+            if j < pcfg.n_d:
+                z_dev[j].copy_(z_j[:m])
+            if j < pcfg.n_g:
+                z_srv[j].copy_(z_j[:big_m])
+        slot = lambda name: None if out is None else getattr(out, name)
         idx = torch.randint(0, self.n_local, (pcfg.n_d, pcfg.n_devices, m),
-                            generator=gen, device=self.device)
+                            generator=gen, device=self.device,
+                            out=slot("idx"))
         quant_u = drop_u = byz = None
         if pcfg.quantize_bits < 32:
             quant_u = torch.rand((pcfg.n_devices, self.n_params),
-                                 generator=gen, device=self.device)
+                                 generator=gen, device=self.device,
+                                 out=slot("quant_u"))
         faults = self.faults
         if faults is not None and faults.dropout_prob > 0:
             drop_u = np.random.default_rng(np.random.SeedSequence(
                 [self.seed, STREAM_DROPOUT, t])).random(pcfg.n_devices)
         if faults is not None and faults.n_byzantine > 0:
             byz = torch.randn((faults.n_byzantine, self.n_params),
-                              generator=gen, device=self.device)
-        return RoundDraws(z[:pcfg.n_d, :m], z[:pcfg.n_g, :big_m], idx,
-                          quant_u, drop_u, byz)
+                              generator=gen, device=self.device,
+                              out=slot("byz_normals"))
+        return RoundDraws(z_dev, z_srv, idx, quant_u, drop_u, byz)
 
 
 def make_train_state(init_fn: Callable, pcfg: ProtocolConfig,
@@ -345,3 +383,220 @@ def uplink_payload_bits(state, pcfg: ProtocolConfig, *,
     if fedgan:
         bits += quantize.tree_bits(state["gen"], pcfg.quantize_bits)
     return bits
+
+
+# ---------------------------------------------------------------------------
+# Fused round engine — Step 1 on the device, one captured graph a round
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class RoundSlots:
+    """The fused driver's per-round inputs, at fixed addresses on the
+    round's device; filled before each round (`fill_slots`).
+
+    draws:  the round's `RoundDraws` tensors (its drop_u stays None: the
+            body takes the dropout uniforms from `drop_u` below)
+    drop_u: (K,) float32 dropout uniforms, or None without dropout
+    fading: (2, K) float32 Exp(1) Rayleigh fading: row 0 for the
+            scheduler's rates, row 1 for the round's timing; None with
+            fading off
+    perm:   (K,) int64 permutation of the `random` policy, else None
+    """
+    draws: RoundDraws
+    drop_u: Optional[torch.Tensor] = None
+    fading: Optional[torch.Tensor] = None
+    perm: Optional[torch.Tensor] = None
+
+    @classmethod
+    def holding(cls, draws: RoundDraws, *, fading: bool,
+                random_policy: bool, dropout: bool, n_devices: int, device):
+        """Slots that hold `draws` (a round's fresh draws, which become
+        the slots' tensors) and empty channel and dropout slots."""
+        on = lambda x: None if x is None else x.to(device)
+        f32 = lambda *shape: torch.empty(shape, dtype=torch.float32,
+                                         device=device)
+        return cls(
+            RoundDraws(on(draws.z_dev), on(draws.z_srv), on(draws.idx),
+                       on(draws.quant_u), None, on(draws.byz_normals)),
+            drop_u=f32(n_devices) if dropout else None,
+            fading=f32(2, n_devices) if fading else None,
+            perm=(torch.empty(n_devices, dtype=torch.int64, device=device)
+                  if random_policy else None))
+
+
+def _to_slot(slot: torch.Tensor, value):
+    """Copy `value` (a tensor or a host array) into `slot`, without a
+    host sync: host data travels from pinned memory, which the caching
+    host allocator keeps until the copy has run."""
+    if not torch.is_tensor(value):
+        value = torch.tensor(value)
+    if slot.is_cuda and value.device.type == "cpu":
+        value = value.to(slot.dtype).pin_memory()
+    slot.copy_(value, non_blocking=True)
+
+
+def fill_slots(slots: RoundSlots, sampler: Callable, t: int, *, seed: int,
+               draws: Optional[RoundDraws] = None):
+    """Write round t's draws into `slots`: the model's draws from
+    `sampler` (a `DrawSampler` draws into them in place, any other
+    sampler's draws are copied; `draws`, round t's draws that the slots
+    hold already, takes the sampler's place), the dropout uniforms,
+    and, from a generator seeded from (seed, STREAM_CHANNEL, t), the
+    fading exponentials, then the random policy's permutation."""
+    if draws is not None:
+        pass
+    elif isinstance(sampler, DrawSampler):
+        draws = sampler(t, out=slots.draws)
+    else:
+        draws = sampler(t)
+        for f in dataclasses.fields(RoundDraws):
+            slot = getattr(slots.draws, f.name)
+            if slot is not None:
+                _to_slot(slot, getattr(draws, f.name))
+    if slots.drop_u is not None:
+        _to_slot(slots.drop_u, np.asarray(draws.drop_u, np.float32))
+    if slots.fading is not None or slots.perm is not None:
+        device = (slots.fading if slots.fading is not None
+                  else slots.perm).device
+        gen = seeded_generator(seed, STREAM_CHANNEL, t, device)
+        if slots.fading is not None:
+            slots.fading.exponential_(generator=gen)
+        if slots.perm is not None:
+            torch.randperm(slots.perm.shape[0], generator=gen,
+                           device=device, out=slots.perm)
+
+
+def schedule_and_time(pcfg: ProtocolConfig, channel, scheduler, sched_carry,
+                      slots: RoundSlots, *, disc_nparams: int,
+                      gen_nparams: int, disc_step_flops: float,
+                      gen_step_flops: float, fedgan: bool, uplink_bits,
+                      faults=None):
+    """Step 1 and the channel's accounting for one round on the device,
+    shared by the fused engine's layouts (`rounds` and
+    `shard_round.mesh_rounds`): from the same slots every layout and
+    every rank computes the same masks, stragglers and weights. Port of
+    `repro.core.protocol.schedule_and_time`.
+
+    With a FaultConfig, the round's dropout knocks scheduled devices out
+    of the mask before timing, and the program's per-device compute
+    multipliers (stragglers slower, free-riders free) feed the timing.
+    Returns (mask, new_sched_carry, timing, weights)."""
+    fading = slots.fading
+    rates = channel.uplink_rates(None if fading is None else fading[0],
+                                 scheduler.n_scheduled)
+    mask, sched_carry = device_scheduling.schedule_step(
+        scheduler, sched_carry, rates, slots.perm)
+    prog = faults_lib.fault_program(faults)
+    compute_mult = None
+    if prog is not None:
+        dropped = prog.dropout_mask_device(slots.drop_u)
+        if dropped is not None:
+            mask = mask & ~dropped
+        compute_mult = prog.roles_on(mask.device).compute_mult
+    timing = channel.round_timing(
+        None if fading is None else fading[1], mask,
+        disc_params=disc_nparams, gen_params=gen_nparams,
+        disc_step_flops=disc_step_flops, gen_step_flops=gen_step_flops,
+        n_d=pcfg.n_d, n_g=pcfg.n_g, fedgan=fedgan, uplink_bits=uplink_bits,
+        compute_mult=compute_mult)
+    active = mask & ~timing.stragglers
+    weights = torch.where(
+        active, torch.full((), float(pcfg.sample_size), device=mask.device),
+        torch.zeros((), device=mask.device)).float()
+    return mask, sched_carry, timing, weights
+
+
+def _round_body(round_fn, pcfg, channel, scheduler, data, counts, fedgan,
+                faults, state, sched_carry, slots):
+    """One fused round: Step 1 and timing, Steps 2-5, the wallclock."""
+    mask, sched_carry, timing, weights = schedule_and_time(
+        pcfg, channel, scheduler, sched_carry, slots, fedgan=fedgan,
+        faults=faults, **counts)
+    state, metrics = round_fn(state, data, weights, slots.draws)
+    wall = device_channel.round_wallclock(timing, mask,
+                                          schedule=pcfg.schedule,
+                                          fedgan=fedgan)
+    return state, sched_carry, {"metrics": metrics, "wallclock_s": wall,
+                                "mask": mask, "weights": weights}
+
+
+def rounds(round_fn, pcfg: ProtocolConfig, state, data_stacked,
+           n_rounds: int, *, channel, scheduler, sampler: Callable,
+           seed: int, sched_carry=None, start_round: int = 0,
+           disc_step_flops: float = 1e9, gen_step_flops: float = 1e9,
+           fedgan: bool = False, uplink_bits: Optional[int] = None,
+           faults=None, graph: graphs.RoundGraph):
+    """The fused round engine: `n_rounds` rounds of ANY round function,
+    Step 1 and the wallclock on the device. Port of
+    `repro.core.protocol.rounds_scan`.
+
+    round_fn:  (state, data_stacked, weights, draws) -> (state, metrics):
+               `gan_round` (via `gan_rounds`) or `fedgan.fedgan_round`
+               (via `fedgan.fedgan_rounds`), or a mesh rank's round.
+    channel:   a `device_channel.DeviceChannel` on the data's device
+    scheduler: a `device_scheduling.DeviceScheduler`
+    sampler:   t -> RoundDraws (a `DrawSampler` or an injected sampler)
+    seed:      the run's seed: round t's channel draws come from
+               (seed, STREAM_CHANNEL, t)
+    sched_carry: the scheduler carry (None: a fresh one)
+    start_round: the absolute index of the first round
+    fedgan:    FedGAN's timing and wallclock composition
+    uplink_bits: the per-device upload payload in bits; None computes it
+               from the state at `pcfg.quantize_bits`
+    graph:     the `graphs.RoundGraph` that runs the rounds (the
+               Trainer's: captured on CUDA on the stacked layout). The
+               first call binds it to `state` and the carry, which it
+               then updates in place; pass the same graph, state and
+               carry to go on in a later chunk.
+
+    Returns (state, sched_carry, out): out stacks per-round
+    {"metrics": {...: (R,)}, "wallclock_s": (R,), "mask": (R, K) bool,
+    "weights": (R, K)} as numpy arrays, JAX's keys (one copy to the host
+    a chunk); state and sched_carry are the graph's static tensors.
+    """
+    device = data_stacked.device
+    first = None          # the first round's draws, when they bind slots
+    if graph.bound:
+        if state is not graph.state or (sched_carry is not None
+                                        and sched_carry is not graph.carry):
+            raise ValueError("a bound RoundGraph goes on from its own "
+                             "state and carry: pass graph.state and "
+                             "graph.carry")
+    else:
+        if sched_carry is None:
+            sched_carry = scheduler.init_carry(device)
+        prog = faults_lib.fault_program(faults)
+        if prog is not None:
+            prog.roles_on(device)          # copied once, before any round
+        if uplink_bits is None:
+            uplink_bits = uplink_payload_bits(state, pcfg, fedgan=fedgan)
+        counts = dict(disc_nparams=count_params(state["disc"]),
+                      gen_nparams=count_params(state["gen"]),
+                      disc_step_flops=disc_step_flops,
+                      gen_step_flops=gen_step_flops, uplink_bits=uplink_bits)
+        first = sampler(start_round)
+        slots = RoundSlots.holding(
+            first, fading=channel.cfg.fading,
+            random_policy=scheduler.policy == "random",
+            dropout=prog is not None and prog.cfg.dropout_prob > 0,
+            n_devices=scheduler.n_devices, device=device)
+        graph.bind(functools.partial(_round_body, round_fn, pcfg, channel,
+                                     scheduler, data_stacked, counts, fedgan,
+                                     faults),
+                   state, sched_carry, slots)
+    out = graph.run(n_rounds, lambda i: fill_slots(
+        graph.slots, sampler, start_round + i, seed=seed,
+        draws=first if i == 0 else None))
+    return graph.state, graph.carry, out
+
+
+def gan_rounds(spec: GanModelSpec, pcfg: ProtocolConfig, state,
+               data_stacked, n_rounds: int, *, faults=None, reducer=None,
+               **kw):
+    """`n_rounds` fused rounds of the PROPOSED protocol (see `rounds`,
+    which takes the keyword arguments). Port of
+    `repro.core.protocol.gan_rounds_scan`."""
+    round_fn = lambda st, d, w, draws: gan_round(
+        spec, pcfg, st, d, w, draws, faults=faults, reducer=reducer)
+    return rounds(round_fn, pcfg, state, data_stacked, n_rounds,
+                  fedgan=False, faults=faults, **kw)

@@ -15,9 +15,17 @@ A rank's state is {"gen", "disc", "gen_opt", "disc_opt"} with ITS own
 disc_opt (FedGAN: its own gen_opt too), unstacked, and an optional
 replicated "fault" entry: the free-riders' stale cache.
 
-Two entry points: `mesh_round` (the proposed protocol, the counterpart
-of `shard_round.shard_map_round`) and `fedgan_mesh_round` (FedGAN, the
-counterpart of `shard_round.fedgan_shard_map_round`).
+Two entry points a round: `mesh_round` (the proposed protocol, the
+counterpart of `shard_round.shard_map_round`) and `fedgan_mesh_round`
+(FedGAN, the counterpart of `shard_round.fedgan_shard_map_round`). Two
+for the fused driver: `mesh_rounds` and `fedgan_mesh_rounds` (the
+counterparts of `shard_rounds_scan` and `fedgan_shard_rounds_scan`),
+where every rank runs Step 1 on its device from the same slots
+(`protocol.rounds`), so the masks agree on every rank and with the
+stacked fused driver, with no collective. These rounds run eagerly,
+never as a captured CUDA graph: the gloo collectives go through the
+host (NCCL across cards, which a graph could capture, needs a machine
+with several).
 """
 from __future__ import annotations
 
@@ -238,7 +246,59 @@ def fedgan_mesh_round(spec, pcfg: ProtocolConfig, state, data_local,
                               avg_impl, faults, reducer)
 
 
-__all__ = ["mesh_round", "fedgan_mesh_round", "check_faults_tp",
+# ---------------------------------------------------------------------------
+# The fused driver: R rounds with Step 1 on every rank
+# ---------------------------------------------------------------------------
+
+def _mesh_rounds(slice_round_fn: Callable, spec, pcfg: ProtocolConfig,
+                 state, data_local, n_rounds: int, *, fedgan: bool,
+                 group=None, avg_impl: str = "pallas", faults=None,
+                 reducer=None, **kw):
+    """`protocol.rounds` over this rank's slice round: every rank
+    schedules from the same slots, takes its own weight from the
+    round's (K,) weights and runs the algorithm's slice round. Port of
+    `repro.core.shard_round._mesh_rounds_scan`; uncaptured (module
+    docstring)."""
+    _check_ring_contract(avg_impl, faults, reducer)
+    if pcfg.schedule not in ("serial", "parallel"):
+        raise ValueError(f"unknown schedule {pcfg.schedule!r}")
+    my_index = dist.get_rank(group)
+
+    def round_fn(st, data_k, weights, draws):
+        protocol._check_draws(pcfg, draws, weights.shape[0])
+        return slice_round_fn(spec, pcfg, group, faults, reducer, avg_impl,
+                              my_index, st, data_k, weights[my_index],
+                              weights, weights.sum(), draws)
+
+    return protocol.rounds(
+        round_fn, pcfg, state, data_local, n_rounds, fedgan=fedgan,
+        faults=faults, **kw)
+
+
+def mesh_rounds(spec, pcfg: ProtocolConfig, state, data_local,
+                n_rounds: int, **kw):
+    """`n_rounds` fused rounds of the proposed protocol on this rank of
+    `group` (the counterpart of `repro.core.shard_round.
+    shard_rounds_scan`). state and data_local as `mesh_round`; the
+    keyword arguments are `protocol.rounds`' and group, avg_impl,
+    faults, reducer as `mesh_round`'s. Returns (state, sched_carry, out)
+    as `protocol.rounds`, the same masks, weights and wallclock on every
+    rank."""
+    return _mesh_rounds(_proposed_slice_round, spec, pcfg, state,
+                        data_local, n_rounds, fedgan=False, **kw)
+
+
+def fedgan_mesh_rounds(spec, pcfg: ProtocolConfig, state, data_local,
+                       n_rounds: int, **kw):
+    """`n_rounds` fused FedGAN rounds on this rank (the counterpart of
+    `repro.core.shard_round.fedgan_shard_rounds_scan`); arguments as
+    `mesh_rounds`."""
+    return _mesh_rounds(_fedgan_slice_round, spec, pcfg, state, data_local,
+                        n_rounds, fedgan=True, **kw)
+
+
+__all__ = ["mesh_round", "fedgan_mesh_round", "mesh_rounds",
+           "fedgan_mesh_rounds", "check_faults_tp",
            "check_ring_support", "PROPOSED_STACKED_KEYS", "PROPOSED_METRICS",
            "PROPOSED_PAYLOAD", "FEDGAN_STACKED_KEYS", "FEDGAN_METRICS",
            "FEDGAN_PAYLOAD"]

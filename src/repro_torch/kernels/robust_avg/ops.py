@@ -123,13 +123,16 @@ def trimmed_average(x, w, *, trim: int):
 
 def _masked_median(v, mask):
     """Median of v[mask] (mean of the two middle order statistics, as
-    np.median), 0 when the mask is empty. No host sync."""
+    np.median), 0 when the mask is empty. No host sync: the order
+    statistics are gathered by 0-dim index tensors (`torch.take`; an
+    index `s[lo]` would read `lo` on the host)."""
     k = v.shape[0]
     s = torch.sort(torch.where(mask, v, torch.inf)).values
     n_part = mask.sum()
     lo = torch.clamp((n_part - 1) // 2, 0, k - 1)
     hi = torch.clamp(n_part // 2, 0, k - 1)
-    return torch.where(n_part > 0, 0.5 * (s[lo] + s[hi]), 0.0)
+    return torch.where(n_part > 0,
+                       0.5 * (torch.take(s, lo) + torch.take(s, hi)), 0.0)
 
 
 def clip_weights(x, w, *, clip_factor: float):

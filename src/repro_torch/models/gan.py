@@ -14,6 +14,9 @@
 
 Conditioned families (encoder-decoder, vision) and the LM mode wait for
 ROADMAP A13 and A14.
+
+Also the minimal MLP-GAN (`mlp_gan_init`, `mlp_gan_spec`): the
+dispatch-bound model of the JAX package's `benchmarks/driver_bench.py`.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import torch
 
 from repro_torch import nn
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.protocol import GanModelSpec
 from repro_torch.models.backbone import backbone_apply, backbone_init
 from repro_torch.nn import initializers
 
@@ -93,3 +97,44 @@ def discriminator_apply(params, cfg: ArchConfig, x_embed, *,
 def gan_init(generator: torch.Generator, cfg: ArchConfig):
     return {"gen": generator_init(generator, cfg),
             "disc": discriminator_init(generator, cfg)}
+
+
+# ---------------------------------------------------------------------------
+# Minimal MLP-GAN — the dispatch-bound driver benchmark's model
+# ---------------------------------------------------------------------------
+
+def mlp_gan_init(generator: torch.Generator, *, d_z: int = 8,
+                 d_hidden: int = 16, d_data: int = 64,
+                 w_scale: float = 0.1):
+    """Two-layer MLP G and D over flattened vectors (port of
+    `repro.models.gan.mlp_gan_init`, the same tree and shapes; the
+    normals come from `generator`, so a parity test carries the JAX
+    package's parameters across with `repro_torch.interop`)."""
+    def s(*shape):
+        return torch.randn(shape, generator=generator,
+                           device=generator.device) * w_scale
+    return {"gen": {"w_in": s(d_z, d_hidden), "w_out": s(d_hidden, d_data)},
+            "disc": {"w_in": s(d_data, d_hidden), "w_out": s(d_hidden, 1)}}
+
+
+def mlp_gan_spec(*, d_z: int = 8, tp_axis=None):
+    """The `GanModelSpec` of the MLP-GAN (port of
+    `repro.models.gan.mlp_gan_spec` at tp_axis=None: the dense math, any
+    layout, any driver). Tensor parallelism is not ported (ROADMAP A
+    item 8): any other tp_axis raises."""
+    if tp_axis is not None:
+        raise NotImplementedError(
+            f"mlp_gan_spec(tp_axis={tp_axis!r}): tensor parallelism is not "
+            f"ported (ROADMAP A item 8); use tp_axis=None")
+
+    def gen_apply(p, z):
+        return torch.tanh(torch.tanh(z @ p["w_in"]) @ p["w_out"])
+
+    def disc_logits(p, x):
+        x = x.reshape(x.shape[0], -1)
+        return (torch.tanh(x @ p["w_in"]) @ p["w_out"])[:, 0]
+
+    return GanModelSpec(
+        sample_z=lambda generator, n: torch.randn(
+            (n, d_z), generator=generator, device=generator.device),
+        gen_apply=gen_apply, disc_real=disc_logits, disc_fake=disc_logits)

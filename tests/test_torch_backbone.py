@@ -284,7 +284,8 @@ def test_trainer_matches_jax_host_driver():
                      KEY, driver="host")
     ttr = Trainer(port_spec(), tpcfg,
                   lambda g: interop.to_torch(jparams, "cpu"), data, seed=0,
-                  sampler=jax_draws(tpcfg, n_params), device="cpu")
+                  sampler=jax_draws(tpcfg, n_params), driver="host",
+                  device="cpu")
     assert ttr.data.dtype == torch.int64
     jhist = jtr.run(2, eval_every=2, fid_fn=jax_fid)
     thist = ttr.run(2, eval_every=2, fid_fn=port_fid)

@@ -228,7 +228,7 @@ def test_trainer_matches_jax_host_driver():
                           jnp.zeros((K,), jnp.float32),
                           jax.random.fold_in(KEY, 0))
     ttr = Trainer(tspec, tpcfg, lambda g: interop.to_torch(jparams, "cpu"),
-                  data, seed=0, device="cpu",
+                  data, seed=0, driver="host", device="cpu",
                   sampler=JaxDraws(KEY, tpcfg, jcfg.d_z, N_LOCAL, n_params,
                                    sample_z=jspec.sample_z))
     (jr,), (tr,) = jtr.run(1), ttr.run(1)

@@ -84,7 +84,7 @@ def test_trainer_matches_jax_host_driver(scheduler):
     ttr = Trainer(tspecs.make_dcgan_spec(TCFG), tpcfg,
                   lambda g: interop.to_torch(params, "cpu"), data, seed=0,
                   sampler=JaxDraws(KEY, tpcfg, TCFG.nz, N_LOCAL, n_params),
-                  device="cpu")
+                  driver="host", device="cpu")
     jhist = jtr.run(3, eval_every=3, fid_fn=jax_fid)
     thist = ttr.run(3, eval_every=3, fid_fn=port_fid)
 
@@ -118,7 +118,7 @@ def test_trainer_default_draws_are_seeded():
     def run(seed):
         tr = Trainer(tspecs.make_dcgan_spec(TCFG), tpcfg,
                      lambda g: tdcgan.gan_init(g, TCFG), flat, seed=seed,
-                     partition="iid", device="cpu")
+                     partition="iid", driver="host", device="cpu")
         assert tuple(tr.data.shape) == (K, N_LOCAL, 16, 16, 1)
         return tr.run(2), tr.state
 
@@ -147,7 +147,7 @@ def test_entry_points_need_a_device_or_an_explicit_cpu():
 
 @pytest.mark.parametrize("kw", [
     dict(algorithm="centralized"),
-    dict(driver="fused"), dict(layout="mesh", tp=2), dict(tp=2),
+    dict(layout="mesh", tp=2), dict(tp=2),
     dict(pcfg=dict(micro_batch_d=2)), dict(pcfg=dict(micro_batch_g=2)),
 ], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
 def test_trainer_refuses_what_is_not_ported(kw):

@@ -275,7 +275,7 @@ def check_trainer_matches_jax(algorithm):
                   algorithm=algorithm, faults=cfg, reducer="trimmed_mean",
                   sampler=FaultJaxDraws(KEY, tpcfg, TCFG.nz, N_LOCAL,
                                         n_params, cfg),
-                  device="cpu")
+                  driver="host", device="cpu")
     jhist, thist = jtr.run(3), ttr.run(3)
     dropped = 0
     for jr, tr in zip(jhist, thist):

@@ -104,16 +104,26 @@ PSUM_CASES += [("pallas", m, "all")
                for m in ("trimmed_mean", "norm_clip", "krum")]
 PSUM_IDS = [f"{impl}-{m or 'mean'}-{w}" for impl, m, w in PSUM_CASES]
 
+# driver: the mesh Trainer's ("auto" resolves to "fused"); the stacked
+# Trainer it is held to runs the resolved driver.
 TRAINER_RUNS = {
     # dropout and stragglers compose with the ring
     "proposed-ring-dropout": dict(
-        algorithm="proposed", impl="ring", seed=0,
+        algorithm="proposed", impl="ring", seed=0, driver="host",
         pcfg=dict(PCFG, scheduler="best_channel", scheduling_ratio=0.5),
         faults=dict(n_devices=K, dropout_prob=0.3, straggler_factor=2.0,
                     seed=1)),
     "fedgan-pallas": dict(algorithm="fedgan", impl="pallas", seed=1,
+                          driver="host",
                           pcfg=dict(PCFG, scheduler="round_robin",
                                     scheduling_ratio=0.5), faults=None),
+    # the fused driver: fading and dropout from the same slots on every
+    # rank, Step 1 on each rank's device
+    "proposed-ring-dropout-fused": dict(
+        algorithm="proposed", impl="ring", seed=0, driver="auto",
+        pcfg=dict(PCFG, scheduler="best_channel", scheduling_ratio=0.5),
+        faults=dict(n_devices=K, dropout_prob=0.3, straggler_factor=2.0,
+                    seed=1)),
 }
 
 
@@ -313,24 +323,26 @@ def test_mesh_round_matches_jax_slice_round(ranks, name):
 @pytest.mark.parametrize("name", list(TRAINER_RUNS))
 def test_mesh_trainer_matches_stacked_trainer(ranks, name):
     """2 rounds: masks, weights and the wallclock bit for bit on every rank
-    and as the stacked Trainer's with the same seed; metrics and globals
-    to round-off (one quantization step where a rounding flips). On the
-    flat path every rank reduces the same gathered payload, so the ranks
-    agree bit for bit; the ring accumulates in each rank's hop order, so
-    there they agree to f32 round-off."""
+    and as the stacked Trainer's with the same seed and driver; metrics
+    and globals to round-off (one quantization step where a rounding
+    flips). On the flat path every rank reduces the same gathered
+    payload, so the ranks agree bit for bit; the ring accumulates in
+    each rank's hop order, so there they agree to f32 round-off."""
     run = TRAINER_RUNS[name]
     stacked = Trainer(tspecs.make_dcgan_spec(TCFG),
                       ProtocolConfig(**run["pcfg"]),
                       lambda g: tdcgan.gan_init(g, TCFG), _data(),
                       seed=run["seed"], algorithm=run["algorithm"],
                       faults=faults.FaultConfig(**run["faults"])
-                      if run["faults"] else None, device="cpu")
+                      if run["faults"] else None, driver=run["driver"],
+                      device="cpu")
     want = stacked.run(2)
     i = list(TRAINER_RUNS).index(name)
     exact = run["impl"] != "ring"
     per_rank = ranks["trainers"][i]
     assert any(not rec.mask.all() for rec in want)    # a worker sat out
-    for r, (hist, state) in enumerate(per_rank):
+    for r, (hist, state, driver) in enumerate(per_rank):
+        assert driver == stacked.driver
         for rec, (mask, weights, metrics, wall, cum) in zip(want, hist):
             np.testing.assert_array_equal(mask, rec.mask)
             np.testing.assert_array_equal(weights, rec.weights)
@@ -348,7 +360,7 @@ def test_mesh_trainer_matches_stacked_trainer(ranks, name):
                 for a, b in zip(tree_leaves(state[part]),
                                 tree_leaves(stacked.state[part])):
                     torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
-        first_hist, first_state = per_rank[0]
+        first_hist, first_state, _ = per_rank[0]
         for (_, _, m, _, _), (_, _, m0, _, _) in zip(hist, first_hist):
             for key in m:
                 if exact:

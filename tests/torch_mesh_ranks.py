@@ -118,8 +118,9 @@ def round_cases(small, state, data, cases, rank, world_size, device):
 
 
 def trainer_runs(small, data, runs, rank, world_size, device):
-    """`Trainer(layout="mesh")` for each run: 2 host-driver rounds from
-    the seeded initial parameters. Returns [(history, state)]."""
+    """`Trainer(layout="mesh")` for each run: 2 rounds of the run's
+    driver from the seeded initial parameters. Returns [(history, state,
+    the resolved driver)]."""
     from repro_torch.configs import ProtocolConfig
     from repro_torch.core import Trainer
     from repro_torch.core.faults import FaultConfig
@@ -131,12 +132,13 @@ def trainer_runs(small, data, runs, rank, world_size, device):
         tr = Trainer(spec, ProtocolConfig(**run["pcfg"]),
                      lambda g: dcgan.gan_init(g, cfg), data, seed=run["seed"],
                      algorithm=run["algorithm"], layout="mesh",
-                     avg_impl=run["impl"], device=device,
+                     avg_impl=run["impl"], driver=run["driver"],
+                     device=device,
                      faults=FaultConfig(**run["faults"]) if run["faults"]
                      else None)
         hist = tr.run(2)
         out.append(([(r.mask, r.weights, r.metrics, r.wallclock_s,
-                      r.cumulative_s) for r in hist], tr.state))
+                      r.cumulative_s) for r in hist], tr.state, tr.driver))
     return out
 
 
