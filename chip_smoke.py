@@ -17,7 +17,9 @@ Phases, in order; any failure exits non-zero:
   3. kernels  each kernel against its plain PyTorch version at the main
               paths' shapes and at edge shapes; timed with CUDA events
               beside its bound and, where one exists, a PyTorch library
-              call; trimmed_wavg at K 1-64 (every exact-K instance
+              call; wavg and trimmed_wavg (trim 0 and 1) also at phase
+              8's fleets of 5 and 8 on the DCGAN payload;
+              trimmed_wavg at K 1-64 (every exact-K instance
               kind and both KMAX buckets), N % 4 != 0 and a payload 4
               bytes off 16-byte alignment (the scalar path), its HBM
               share beside wavg's on the same payload, and the honest
@@ -98,6 +100,32 @@ Phases, in order; any failure exits non-zero:
               eagerly under set_sync_debug_mode("error"). granite-3-2b
               stays on the host driver. (The mesh path 5e has a fused
               run too: ranks run uncaptured, gloo goes through the host.)
+  8. experiments  a. resume on the card: the full DCGAN (K=10, fused,
+              deterministic cuDNN, fading on), 4 rounds against 2
+              rounds, `save_checkpoint`, 2 more (the graph captured),
+              `restore` of round 2 into that Trainer and 2 rounds (graph
+              replays), and against a fresh Trainer restored from round
+              2: masks, weights, every round's metrics and the
+              parameters bitwise equal, wallclock within rtol 1e-6; for
+              the protocol, its hostile path (the free-riders' stale
+              cache, trimmed mean) and FedGAN
+              b. a centralized step and a microbatched round
+              (micro_batch_d=2, micro_batch_g=4) at phase 4's small
+              DCGAN, card against CPU from the same draws; the MLP-GAN's
+              microbatched round against its whole-batch round on the
+              card (no batch-norm: equal to f32 round-off)
+              c. the "experiments" path: the quickstart twin at its
+              defaults (20 rounds, its checkpoint read back), then fig3,
+              fig4, fig5 and fig6 at the paper's full width
+              (REPRO_BENCH_FULL=1, 2 rounds, FID at round 2) and
+              fig_robust --smoke with its identity gate; each figure's
+              seconds, seconds a round, final FIDs and the wavg and
+              trimmed_wavg launches that ran on the device (the
+              wrappers' calls less those recorded in a graph capture,
+              plus the captured calls once a replay; the quickstart's
+              held to its profiled device timeline); then each kernel
+              against its plain version at every shape the path gave
+              its wrapper
 The last two lines are the `kernels` JSON line and
 {"ok": true, "device": {...}}.
 """
@@ -109,6 +137,7 @@ import dataclasses
 import functools
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -139,6 +168,10 @@ EDGE_K = (1, 7, 64)
 # KMAX 32 and 64 past it, and the edges between them
 TRIM_EDGE_K = (1, 2, 3, 5, 10, 13, 16, 17, 32, 33, 64)
 TRIM_EDGE = (0, 1, 3)
+# the fleets of phase 8's figures on the DCGAN payload besides K_MAIN:
+# fig4's K=5, and fig_robust's K=8 (trimmed mean at trim 1, trim 0 in
+# its identity gate)
+EXPERIMENT_K = (5, 8)
 # The Mamba-2 SSD scan of the full-width mamba2-130m backbone-GAN:
 # b = m = 8 sequences of 512 tokens, 24 heads of 64, one group of 128.
 SSD_MAIN = dict(b=8, s=512, h=24, p=64, g=1, n=128, chunk=128)
@@ -213,7 +246,8 @@ def check_wavg(torch, ops):
 
     mains = [(K_MAIN, N_MAIN), (K_BACKBONE, N_BACKBONE),
              (K_BACKBONE, N_GRANITE)]
-    shapes = mains + [(k, n) for k in EDGE_K for n in EDGE_N]
+    shapes = mains + [(k, N_MAIN) for k in EXPERIMENT_K] + [
+        (k, n) for k in EDGE_K for n in EDGE_N]
     max_err = {}
     for k, n in shapes:
         x, w = inputs(k, n)
@@ -283,6 +317,8 @@ def check_trimmed(torch, ops):
     cases = [((K_MAIN, N_MAIN), 2, 1, False), ((K_MAIN, N_FEDGAN), 1, 1,
                                                 False),
              ((K_MAIN, N_MAIN + 2), 2, 1, False)]   # N % 4 != 0
+    cases += [((k, N_MAIN), trim, 1, False) for k in EXPERIMENT_K
+              for trim in (0, 1)]
     cases += [((k, n), trim, k // 4, trim == 3) for k in TRIM_EDGE_K
               for n in EDGE_N for trim in TRIM_EDGE]
     max_err = {}
@@ -2055,6 +2091,502 @@ def train_fused(torch, shards, card):
     return results
 
 
+# ---------------------------------------------------------------------------
+# 8. Experiments: checkpoints and resume, the centralized baseline,
+#    microbatching, the quickstart twin and the paper's figures
+# ---------------------------------------------------------------------------
+
+def _rounds_since(trainer, n, first):
+    """The last `n` records of `trainer`, which must be rounds `first`,
+    `first` + 1, ..."""
+    recs = trainer.history[-n:]
+    if [r.round for r in recs] != list(range(first, first + n)):
+        raise AssertionError(f"rounds {[r.round for r in recs]}, expected "
+                             f"{first}..{first + n - 1}")
+    return recs
+
+
+def resume_matches(torch, label, make_trainer, directory):
+    """`make_trainer()` (a fused Trainer) for 4 uninterrupted rounds,
+    against 2 rounds, `save_checkpoint`, 2 more rounds (the round graph
+    captured), `restore` of round 2 into the same Trainer and 2 rounds;
+    and against a fresh Trainer restored from round 2 for 2 rounds.
+    Rounds 2-3 of each must equal the uninterrupted run's bit for bit
+    (masks, weights, metrics, parameters; wallclock rtol 1e-6,
+    `driver_mismatch`). Returns seconds and sizes for the JSON line."""
+    whole = make_trainer()
+    whole.run(4)
+    want = (_rounds_since(whole, 2, 2), _params(whole))
+    del whole
+    part = make_trainer()
+    part.run(2)
+    t0 = time.perf_counter()
+    path = part.save_checkpoint(directory)
+    save_s = time.perf_counter() - t0
+    part.run(2)
+    graph = part._graph
+    if not graph.captured:
+        raise AssertionError(f"{label}: the round graph is not captured")
+    replays = graph.replays
+    t0 = time.perf_counter()
+    part.restore(directory, step=2)
+    restore_s = time.perf_counter() - t0
+    if part.state is not graph.state:
+        raise AssertionError(f"{label}: restore rebound a captured state")
+    part.run(2)
+    if graph.replays != replays + 2:
+        raise AssertionError(f"{label}: the resumed rounds were not replays")
+    fresh = make_trainer()
+    fresh.restore(directory)
+    fresh.run(2)
+    for who, trainer in (("the same Trainer", part), ("a fresh Trainer",
+                                                       fresh)):
+        wrong = driver_mismatch(want, (_rounds_since(trainer, 2, 2),
+                                       _params(trainer)))
+        if wrong:
+            raise AssertionError(f"{label}: resumed on {who}: {wrong}")
+    size = os.path.getsize(path)
+    print(f"resume {label}: 4 rounds against 2 + save + 2 + restore + 2 "
+          f"(replays on the captured graph) and against a fresh Trainer "
+          f"restored from round 2: masks, weights, metrics and parameters "
+          f"bitwise equal, wallclock within rtol 1e-6; checkpoint "
+          f"{size / 2**20:.1f} MiB, save {save_s:.3f} s, restore into the "
+          f"graph {restore_s:.3f} s")
+    del part, fresh
+    return {"checkpoint_mib": size / 2**20, "save_s": save_s,
+            "restore_s": restore_s}
+
+
+def check_resume(torch, shards, directory):
+    """8a: resume on the card, the full DCGAN (K=10) under the fused
+    driver and deterministic cuDNN (as in phase 7), fading on (its draws
+    are keyed by (seed, round) as well): the protocol, its hostile path
+    (free-riders' stale cache, trimmed mean) and FedGAN."""
+    from repro_torch.configs import DCGANConfig, ProtocolConfig
+    from repro_torch.core import Trainer
+    from repro_torch.core.faults import FaultConfig
+    from repro_torch.kernels.robust_avg.ops import RobustConfig
+    from repro_torch.models import dcgan
+    from repro_torch.models.specs import make_dcgan_spec
+
+    cfg = DCGANConfig()
+    spec = make_dcgan_spec(cfg, gen_loss_variant="nonsaturating")
+    pcfg = ProtocolConfig(n_devices=10, n_d=5, n_g=5, sample_size=128,
+                          server_sample_size=128, optimizer="adam",
+                          schedule="serial", scheduler="round_robin",
+                          scheduling_ratio=0.5)
+
+    def make(**kw):
+        return lambda: Trainer(spec, pcfg, lambda g: dcgan.gan_init(g, cfg),
+                               shards, seed=0, driver="fused", **kw)
+
+    runs = [("DCGAN serial", make()),
+            ("DCGAN hostile trimmed_mean", make(
+                faults=FaultConfig(**HOSTILE),
+                reducer=RobustConfig("trimmed_mean", trim=2))),
+            ("DCGAN FedGAN", make(algorithm="fedgan"))]
+    out = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for label, make_trainer in runs:
+            ckpt = os.path.join(directory, label)
+            out[label] = resume_matches(torch, label, make_trainer, ckpt)
+            shutil.rmtree(ckpt)     # up to 0.6 GB a checkpoint
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return out
+
+
+def check_centralized_and_microbatched(torch):
+    """8b: on the card and on the CPU from the same weights and draws, at
+    phase 4's small DCGAN: a centralized step (one worker on the pooled
+    shards), and a protocol round with micro_batch_d=2, micro_batch_g=4
+    (per-chunk batch statistics); agreement to float32 round-off (one
+    quantization step for the uploaded discriminator). Then the MLP-GAN,
+    which has no batch-norm: its microbatched round on the card equals
+    the unbatched one to float32 round-off (SGD, a float32 uplink)."""
+    from repro_torch.configs import DCGANConfig, ProtocolConfig
+    from repro_torch.core import protocol
+    from repro_torch.kernels.wavg import ops as wavg_ops
+    from repro_torch.models import dcgan, gan
+    from repro_torch.models.specs import make_dcgan_spec
+    from repro_torch.tree import tree_leaves
+
+    cfg = DCGANConfig(nz=16, ngf=8, ndf=8, nc=3, image_size=16)
+    spec = make_dcgan_spec(cfg)
+    k = 4
+    pcfg = ProtocolConfig(n_devices=k, n_d=2, n_g=2, sample_size=16,
+                          server_sample_size=16, lr_d=1e-3, lr_g=1e-3,
+                          optimizer="adam")
+    gen = torch.Generator().manual_seed(3)
+    params = dcgan.gan_init(gen, cfg)
+    data = torch.rand((k, 32, 16, 16, 3), generator=gen) * 2 - 1
+    n_disc = protocol.count_params(params["disc"])
+
+    def on(draws, dev):
+        return protocol.RoundDraws(*(None if t is None else t.to(dev) for t in
+                                     (draws.z_dev, draws.z_srv, draws.idx,
+                                      draws.quant_u)))
+
+    def agree(label, out, quantized):
+        torch.cuda.synchronize()
+        (s_cpu, m_cpu), (s_gpu, m_gpu) = out["cpu"], out["cuda"]
+        for part in ("gen", "disc"):
+            for a, b in zip(tree_leaves(s_cpu[part]),
+                            tree_leaves(s_gpu[part])):
+                step = (float(a.abs().max()) / 32767
+                        if part in quantized else 0.0)
+                torch.testing.assert_close(b.cpu(), a, rtol=0,
+                                           atol=step + 1e-5)
+        for key in m_cpu:
+            torch.testing.assert_close(m_gpu[key].cpu(), m_cpu[key], rtol=0,
+                                       atol=1e-5)
+        print(f"{label} on the card matches the CPU's (D objective "
+              f"{float(m_gpu['disc_objective']):+.6f})")
+
+    # the centralized step: one device's draws over the K·32 pooled rows
+    one = dataclasses.replace(pcfg, n_devices=1)
+    pooled = data.reshape((-1,) + data.shape[2:])
+    draws = protocol.DrawSampler(spec, one, seed=1, n_local=pooled.shape[0],
+                                 n_params=n_disc, device="cpu")(0)
+    out = {dev: protocol.centralized_step(
+        spec, one, protocol.make_train_state(lambda g: params, one, 1,
+                                             device=dev),
+        pooled.to(dev), on(draws, dev)) for dev in ("cpu", "cuda")}
+    agree("centralized step (K=4 shards pooled, 128 rows)", out, ())
+
+    micro = dataclasses.replace(pcfg, micro_batch_d=2, micro_batch_g=4)
+    draws = protocol.DrawSampler(spec, micro, seed=1, n_local=32,
+                                 n_params=n_disc, device="cpu")(0)
+    weights = torch.tensor([16.0, 0.0, 16.0, 16.0])
+    before = wavg_ops.launches
+    out = {dev: protocol.gan_round(
+        spec, micro, protocol.make_train_state(lambda g: params, micro, k,
+                                               device=dev),
+        data.to(dev), weights.to(dev), on(draws, dev))
+        for dev in ("cpu", "cuda")}
+    if wavg_ops.launches != before + 1:
+        raise AssertionError("the microbatched round launched wavg "
+                             f"{wavg_ops.launches - before} times")
+    agree("microbatched round (micro_batch_d=2, micro_batch_g=4, "
+          "per-chunk batch statistics)", out, ("disc",))
+
+    k = 8
+    mlp = ProtocolConfig(n_devices=k, n_d=2, n_g=2, sample_size=16,
+                         server_sample_size=16, lr_d=1e-2, lr_g=1e-2,
+                         quantize_bits=32)
+    mspec = gan.mlp_gan_spec(d_z=8)
+    mparams = gan.mlp_gan_init(torch.Generator().manual_seed(4), d_z=8,
+                               d_hidden=16, d_data=64)
+    mdata = torch.randn((k, 32, 64), generator=torch.Generator()
+                        .manual_seed(5)).cuda()
+    draws = on(protocol.DrawSampler(mspec, mlp, seed=2, n_local=32,
+                                    n_params=0, device="cpu")(0), "cuda")
+    w = torch.full((k,), 16.0, device="cuda")
+    rounds = {}
+    for label, p in (("whole", mlp), ("micro", dataclasses.replace(
+            mlp, micro_batch_d=2, micro_batch_g=4))):
+        state = protocol.make_train_state(lambda g: mparams, p, k,
+                                          device="cuda")
+        rounds[label] = protocol.gan_round(mspec, p, state, mdata, w, draws)
+    (s_w, m_w), (s_m, m_m) = rounds["whole"], rounds["micro"]
+    diff = max(float((a - b).abs().max()) for a, b in
+               zip(tree_leaves(s_w), tree_leaves(s_m)))
+    if diff > 1e-6 or any(abs(float(m_w[key]) - float(m_m[key])) > 1e-6
+                          for key in m_w):
+        raise AssertionError(f"MLP-GAN: the microbatched round differs "
+                             f"from the whole batch by {diff:.3e}")
+    print(f"MLP-GAN (K={k}, no batch-norm): the microbatched round on the "
+          f"card equals the whole-batch round to {diff:.3e} (atol 1e-6)")
+    return {"mlp_micro_vs_whole": diff}
+
+
+# The paper's experiments on the card at full width, 2 rounds a setting
+# with FID at round 2: (name, (wavg, trimmed_wavg) launches on the
+# device). A fused Trainer runs its averaging kernel once a round: the
+# eager first round, then one replay a round; the centralized baseline
+# runs on the host driver and averages nothing.
+EXPERIMENTS = [
+    ("quickstart", (20, 0)),             # one fused Trainer, 20 rounds
+    ("fig3_schedules", (12, 0)),         # 6 settings
+    ("fig4_devices", (4, 0)),            # centralized, K=5, K=10
+    ("fig5_fedgan", (3 * 2 + 2 * 4, 0)),  # 3 proposed, 2 FedGAN (2 nets)
+    ("fig6_scheduling", (6, 0)),         # 3 ratios
+    # mean x4 (fr0, fr4, byz3, identity), krum x2: wavg; trimmed x3
+    ("fig_robust --smoke", (12, 6)),
+]
+
+
+class PathWatch:
+    """The kernels of a path that replays CUDA graphs, watched from
+    outside the program. A fused Trainer calls a wrapper in its eager
+    first round and again while it captures the round graph, which
+    records the launch without running it; each replay runs the
+    recorded launches and calls no wrapper. So the launches that ran on
+    the device are the wrappers' counts, less the calls made during a
+    capture, plus each graph's captured calls once per replay. The
+    watch also keeps the arguments' shapes of every wrapper call, so
+    the kernels can be held against their plain versions at exactly
+    the path's shapes.
+
+    kernels: {name: (ops module, wrapper name, shape(args, kwargs))}."""
+
+    def __init__(self, torch, kernels):
+        self.torch, self.kernels = torch, kernels
+        self.shapes = {name: set() for name in kernels}
+        self.calls = dict.fromkeys(kernels, 0)     # seen by the watch
+        self.captured = dict.fromkeys(kernels, 0)
+        self.replayed = dict.fromkeys(kernels, 0)
+
+    def counts(self):
+        """The wrappers' own counts."""
+        return {name: mod.launches for name, (mod, _, _) in
+                self.kernels.items()}
+
+    def launches(self):
+        """Device launches since the watch began (the counts start at 0
+        with it)."""
+        return {name: n - self.captured[name] + self.replayed[name]
+                for name, n in self.counts().items()}
+
+    def __enter__(self):
+        torch, watch = self.torch, self
+        self._saved = [(torch.cuda, "graph", torch.cuda.graph),
+                       (torch.cuda.CUDAGraph, "replay",
+                        torch.cuda.CUDAGraph.replay)]
+        for name, (mod, attr, shape) in self.kernels.items():
+            self._saved.append((mod, attr, getattr(mod, attr)))
+
+            def wrapper(*args, _name=name, _fn=getattr(mod, attr),
+                        _shape=shape, **kwargs):
+                watch.shapes[_name].add(_shape(args, kwargs))
+                watch.calls[_name] += 1
+                return _fn(*args, **kwargs)
+            setattr(mod, attr, wrapper)
+
+        class graph(torch.cuda.graph):
+            def __enter__(inner):
+                inner.before = watch.counts()
+                return super().__enter__()
+
+            def __exit__(inner, *exc):
+                out = super().__exit__(*exc)
+                calls = {name: n - inner.before[name]
+                         for name, n in watch.counts().items()}
+                inner.cuda_graph.path_calls = calls
+                for name, n in calls.items():
+                    watch.captured[name] += n
+                return out
+
+        replay = torch.cuda.CUDAGraph.replay
+
+        def replayed(graph_self):
+            replay(graph_self)
+            for name, n in getattr(graph_self, "path_calls", {}).items():
+                watch.replayed[name] += n
+        torch.cuda.graph = graph
+        torch.cuda.CUDAGraph.replay = replayed
+        for mod in {mod for mod, _, _ in self.kernels.values()}:
+            mod.launches = 0
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, value in reversed(self._saved):
+            setattr(owner, attr, value)
+        missed = {name: n for name, n in self.counts().items()
+                  if n != self.calls[name]}
+        if missed and not exc[0]:
+            raise AssertionError(f"wrapper counts {missed} include calls "
+                                 f"the watch did not see: {self.calls}")
+
+
+def check_path_shapes(torch, watch, wavg_ops, robust_ops):
+    """Every wrapper of the watched path against its plain version, on
+    fresh random inputs at each shape the path gave it (rtol RTOL, atol
+    ATOL); returns the largest error per kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    err = {}
+    for k, n in sorted(watch.shapes["wavg"]):
+        x = torch.randn((k, n), generator=gen, device="cuda")
+        w = torch.rand(k, generator=gen, device="cuda")
+        w = w / w.sum()
+        out = wavg_ops.weighted_average(x, w)
+        ref = wavg_ops.wavg_ref(x, w)
+        torch.testing.assert_close(out, ref, rtol=RTOL, atol=ATOL)
+        err["wavg"] = max(err.get("wavg", 0.0),
+                          float((out - ref).abs().max()))
+    for k, n, trim in sorted(watch.shapes["trimmed_wavg"]):
+        x = torch.randn((k, n), generator=gen, device="cuda")
+        x[k - 1] = x[k - 2]                # exact ties, as free-riders make
+        w = torch.rand(k, generator=gen, device="cuda") + 0.5
+        w[0] = 0.0                         # a dropped worker
+        out = robust_ops.trimmed_average(x, w, trim=trim)
+        ref = robust_ops.trimmed_mean_ref(x, w, trim)
+        torch.testing.assert_close(out, ref, rtol=RTOL, atol=ATOL)
+        err["trimmed_wavg"] = max(err.get("trimmed_wavg", 0.0),
+                                  float((out - ref).abs().max()))
+    torch.cuda.synchronize()
+    print(f"the experiments path's shapes, each kernel against its plain "
+          f"version (rtol {RTOL}, atol {ATOL}): wavg (K, N) "
+          f"{sorted(watch.shapes['wavg'])}, trimmed_wavg (K, N, trim) "
+          f"{sorted(watch.shapes['trimmed_wavg'])}; max abs err {err}")
+    return err
+
+
+def run_experiments(torch, wavg_ops, robust_ops, directory):
+    """8c: the quickstart twin at its defaults, then every figure at the
+    paper's full width (REPRO_BENCH_FULL=1, 2 rounds, FID at round 2)
+    through `repro_torch.experiments`, under a `PathWatch` (the path's
+    counts start at 0 here): each setting's device launches of wavg and
+    trimmed_wavg, the quickstart's read beside its device timeline.
+    Every curve has its rounds, a finite last FID and a growing
+    wallclock; the robustness sweep passes its identity gate; the
+    quickstart's checkpoint holds its trained state bit for bit. Then
+    each kernel against its plain version at the path's own shapes."""
+    os.environ.update(REPRO_BENCH_FULL="1", REPRO_BENCH_ROUNDS="2",
+                      REPRO_BENCH_EVAL_EVERY="2")
+    import re
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.examples import quickstart
+    from repro_torch.experiments import (common, fig3_schedules,
+                                         fig4_devices, fig5_fedgan,
+                                         fig6_scheduling, fig_robust)
+    from repro_torch.tree import tree_leaves
+    if (common.FULL, common.ROUNDS, common.EVAL_EVERY) != (True, 2, 2):
+        raise AssertionError("repro_torch.experiments was imported before "
+                             "phase 8 set its environment")
+    out_dir = os.path.join(directory, "figures")
+    timeline = {}
+
+    def quickstart_run():
+        ckpt = os.path.join(directory, "quickstart_ckpt")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            trainer = quickstart.main(["--ckpt-dir", ckpt])
+            torch.cuda.synchronize()
+        names = [e[0] for e in _device_records(torch, prof) if not e[3]]
+        timeline.update({kernel: sum(1 for name in names
+                                     if re.search(REPLAY_KERNELS[kernel],
+                                                  name))
+                         for kernel in ("wavg", "trimmed_wavg")})
+        fids = [r.fid for r in trainer.history if r.fid is not None]
+        if len(trainer.history) != 20 or len(fids) != 4 or not all(
+                np.isfinite(fids)):
+            raise AssertionError(f"quickstart: {len(trainer.history)} "
+                                 f"rounds, FIDs {fids}")
+        if not (trainer.driver == "fused" and trainer._graph.captured
+                and trainer._graph.replays == 19):
+            raise AssertionError("quickstart: not a captured fused run of "
+                                 "19 replays")
+        tree, step, _ = load_checkpoint(ckpt)
+        if step != 20 or not all(
+                np.array_equal(a.detach().cpu().numpy(), b) for a, b in
+                zip(tree_leaves(trainer.state), tree_leaves(tree))):
+            raise AssertionError("quickstart: the checkpoint is not the "
+                                 "trained state")
+        return [common.Curve("quickstart", [r.round for r in trainer.history],
+                             [r.cumulative_s for r in trainer.history],
+                             [r.fid for r in trainer.history])]
+
+    def robust_run():
+        rc = fig_robust.main(["--smoke", "--rounds", "2", "--json",
+                              os.path.join(directory, "robust.json")])
+        if rc != 0:
+            raise AssertionError(f"fig_robust --smoke exited {rc}")
+        with open(os.path.join(directory, "robust.json")) as f:
+            sweeps = json.load(f)["sweeps"]
+        return [common.Curve(**cell["curve"]) for sweep in sweeps.values()
+                for cell in sweep.values()]
+
+    mains = {"quickstart": quickstart_run,
+             "fig3_schedules": lambda: fig3_schedules.main(out_dir),
+             "fig4_devices": lambda: fig4_devices.main(out_dir),
+             "fig5_fedgan": lambda: fig5_fedgan.main(out_dir),
+             "fig6_scheduling": lambda: fig6_scheduling.main(out_dir),
+             "fig_robust --smoke": robust_run}
+    results = {}
+    with PathWatch(torch, {
+            "wavg": (wavg_ops, "weighted_average",
+                     lambda a, kw: tuple(a[0].shape)),
+            "trimmed_wavg": (robust_ops, "trimmed_average",
+                             lambda a, kw: (*a[0].shape, int(kw["trim"])))
+    }) as watch:                                    # the path starts here
+        for name, want in EXPERIMENTS:
+            before = watch.launches()
+            calls_before = watch.counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            curves = mains[name]()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            now, calls = watch.launches(), watch.counts()
+            got = tuple(now[k] - before[k] for k in ("wavg", "trimmed_wavg"))
+            if got != want:
+                raise AssertionError(f"{name}: (wavg, trimmed_wavg) device "
+                                     f"launches {got}, expected {want}")
+            if name == "quickstart" and got != (timeline["wavg"],
+                                                timeline["trimmed_wavg"]):
+                raise AssertionError(f"quickstart: {got} launches counted, "
+                                     f"{timeline} on the device timeline")
+            for c in curves:
+                n = 20 if name == "quickstart" else 2
+                if (c.rounds != list(range(n)) or not np.isfinite(c.fid[-1])
+                        or c.wallclock != sorted(c.wallclock)
+                        or not c.wallclock[0] > 0):
+                    raise AssertionError(f"{name} {c.label}: rounds "
+                                         f"{c.rounds}, FID {c.fid}, "
+                                         f"wallclock {c.wallclock}")
+            n_rounds = sum(len(c.rounds) for c in curves)
+            wrapped = tuple(calls[k] - calls_before[k]
+                            for k in ("wavg", "trimmed_wavg"))
+            results[name] = {"seconds": secs, "settings": len(curves),
+                             "s_per_round": secs / n_rounds,
+                             "final_fid": {c.label: common.last_fid(c)
+                                           for c in curves},
+                             "wavg": got[0], "trimmed_wavg": got[1],
+                             "wrapper_calls": wrapped}
+            print(f"experiment {name}: {len(curves)} setting(s), "
+                  f"{secs:.2f} s ({secs / n_rounds:.3f} s a round with "
+                  f"set-up and FID), final FID "
+                  + ", ".join(f"{c.label} {common.last_fid(c):.3f}"
+                              for c in curves)
+                  + f"; {got[0]} wavg and {got[1]} trimmed_wavg launches on "
+                  f"the device ({wrapped} wrapper calls)"
+                  + (f"; device timeline {timeline}"
+                     if name == "quickstart" else ""))
+        launches = watch.launches()                  # ... and ends here
+    print(f"experiments path: device launches {launches}, wrapper calls "
+          f"{watch.calls}, of them recorded in a capture {watch.captured}, "
+          f"replayed {watch.replayed}")
+    errors = check_path_shapes(torch, watch, wavg_ops, robust_ops)
+    return results, launches, errors
+
+
+def train_experiments(torch, shards, card, wavg_ops, robust_ops):
+    """Phase 8 on `card`; returns the experiments path's launches."""
+    import tempfile
+    base = os.path.join(ROOT, "results", "torch")
+    os.makedirs(base, exist_ok=True)
+    directory = tempfile.mkdtemp(prefix="chip_smoke_", dir=base)
+    try:
+        resume = check_resume(torch, shards, directory)
+        stamp("experiments: resume")
+        checks = check_centralized_and_microbatched(torch)
+        stamp("experiments: centralized and microbatched rounds")
+        results, launches, errors = run_experiments(torch, wavg_ops,
+                                                    robust_ops, directory)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    print(f"experiments phase on {card}")
+    print(json.dumps({"experiments": {"resume": resume, "checks": checks,
+                                      "runs": results,
+                                      "path_shapes_max_abs_err": errors}},
+                     default=float))
+    return launches
+
+
 T_START = time.perf_counter()
 
 
@@ -2195,6 +2727,15 @@ def main() -> int:
     # stays on the host driver)
     train_fused(torch, shards, card)
     stamp("fused")
+
+    # 8. experiments: resume, centralized and microbatched rounds, then
+    # the quickstart twin and the figures (the "experiments" path)
+    experiments = train_experiments(torch, shards, card, ops, robust_ops)
+    for entry in (wavg, trimmed, ssd, flash, ring):
+        n = experiments.get(entry["name"], 0)
+        entry["launches_by_path"]["experiments"] = n
+        entry["launches"] += n
+    stamp("experiments")
 
     print(json.dumps({"kernels": [wavg, trimmed, ssd, flash, ring]}))
     print(json.dumps({"ok": True, "device": {

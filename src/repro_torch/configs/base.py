@@ -170,7 +170,7 @@ class ProtocolConfig:
     lr_g: float = 2e-4           # eta_g
     schedule: str = "serial"     # "serial" | "parallel"
     # Gradient-accumulation microbatch sizes (None = whole sample batch in
-    # one fwd/bwd). The port does not support microbatching yet.
+    # one fwd/bwd); FedGAN takes none, as in the JAX package.
     micro_batch_d: Optional[int] = None
     micro_batch_g: Optional[int] = None
     # The shared-seed design makes every device's fake batch identical;

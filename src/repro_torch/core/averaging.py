@@ -161,3 +161,13 @@ def broadcast_like(params, n: int):
     """Tile a tree to a stacked leading device axis (Step 5 broadcast)."""
     return tree_map(lambda x: x.unsqueeze(0).repeat((n,) + (1,) * x.dim()),
                     params)
+
+
+def select_tree(mask, tree_true, tree_false):
+    """Per-device `torch.where` over stacked trees: device k's slice from
+    `tree_true` where mask[k], else from `tree_false` (straggler
+    exclusion). mask: (K,) bool, or a 0-dim bool for unstacked trees."""
+    return tree_map(
+        lambda a, b: torch.where(mask.reshape((-1,) + (1,) * (a.dim() - 1)),
+                                 a, b),
+        tree_true, tree_false)

@@ -2,13 +2,21 @@
 the wireless channel simulator, wall-clock accounting, and periodic
 evaluation — the paper's experimental harness (Figs 3-6).
 
-Port of `repro.core.engine.Trainer`: algorithms "proposed" and
-"fedgan", with the hostile-worker regime: fault programs (`faults=`) and
-robust reducers (`reducer=`), under two drivers on two layouts:
+Port of `repro.core.engine.Trainer`: algorithms "proposed", "fedgan"
+and the "centralized" baseline, with the hostile-worker regime: fault
+programs (`faults=`) and robust reducers (`reducer=`), under two drivers
+on two layouts:
 
                     layout="stacked"          layout="mesh"
   proposed       host + fused              host + fused
   fedgan         host + fused              host + fused
+  centralized    host only                 — (no device structure)
+
+The centralized baseline trains one worker on the K shards pooled in
+device order, with the draws of one device over the pooled rows; the
+host driver still schedules and times the K devices, so its wallclock
+curve is the JAX Trainer's. It has no fused driver, no mesh layout, no
+faults and no reducer, and refuses them as the JAX Trainer does.
 
 DRIVER — how rounds are dispatched:
 
@@ -28,9 +36,8 @@ DRIVER — how rounds are dispatched:
       wallclock it matches bit for bit: the equivalence oracle of the
       fused driver, whose masks and weights equal its own for
       deterministic policies with fading off.
-  driver="auto" (default) - as in the JAX package: "fused" for both
-      algorithms (its centralized baseline, the one algorithm it runs on
-      the host driver, is not ported).
+  driver="auto" (default) - as in the JAX package: "fused" for the
+      proposed protocol and FedGAN, "host" for the centralized baseline.
 
 LAYOUT:
 
@@ -45,9 +52,26 @@ LAYOUT:
       "jnp" (per-leaf all-reduce) or "ring" (the chunked ring, ring_accum
       kernel).
 
-Every other choice of the JAX Trainer's constructor — the centralized
-baseline, tensor parallelism, microbatching — raises a ValueError;
-checkpoints are not ported yet (ROADMAP A item 5).
+MICROBATCHING (`pcfg.micro_batch_d` / `micro_batch_g`) splits Algorithm
+1's and Algorithm 3's batches into chunks (`protocol._accumulated_grad`)
+on every algorithm but FedGAN, which has none, as in the JAX package.
+Tensor parallelism (tp > 1) raises a ValueError.
+
+CHECKPOINT/RESUME: `save_checkpoint`/`restore` write and read the state
+with the round index, the clock and the scheduler carry through
+`repro_torch.checkpoint`, in the JAX package's format and tree
+({"state", "trainer": {"round_index", "clock", "sched_carry"}}), so a
+checkpoint crosses packages both ways. A resumed fused run continues
+masks, parameters and the wallclock curve exactly: every draw is keyed
+by (seed, round), and nothing else carries across rounds (the device
+channel and the fault roles are fixed, the round's slots are refilled).
+Host-driver resume is exact for deterministic policies with fading off
+(its numpy streams are not serialized, as in JAX). `restore` on a
+Trainer whose round graph is bound copies into the graph's static
+tensors, so a replay reads the restored state. On the mesh layout the
+checkpoint is global-shaped: the ranks' own optimizer states are
+gathered into the stacked (K, ...) tree, which rank 0 writes, and each
+rank restores its own slice.
 """
 from __future__ import annotations
 
@@ -59,6 +83,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import checkpoint
 from repro_torch.configs.base import ProtocolConfig
 from repro_torch.core import faults as faults_lib
 from repro_torch.core import fedgan, graphs, protocol, shard_round
@@ -69,9 +94,55 @@ from repro_torch.core.device_scheduling import DeviceScheduler
 from repro_torch.core.scheduling import SchedulerState, schedule_round
 from repro_torch.device import resolve_device
 from repro_torch.kernels.robust_avg.ops import ROBUST_METHODS, RobustConfig
-from repro_torch.tree import tree_index
+from repro_torch.launch import mesh
+from repro_torch.tree import tree_index, tree_leaves, tree_map
 
-ALGORITHMS = ("proposed", "fedgan")
+
+@dataclasses.dataclass(frozen=True)
+class _Algorithm:
+    """How one algorithm builds its state and runs its rounds, as in
+    the JAX package's `_ALGORITHMS` table: the stacked round and fused
+    rounds, the mesh ones (None where the algorithm has no mesh layout
+    or no fused driver), the uplink payload (None: no uploads, so no
+    faults or reducer), the state entries a mesh rank keeps for itself,
+    and whether the channel times two uploaded nets (FedGAN) and the
+    shards are pooled into one worker (the centralized baseline)."""
+    make_state: Callable   # (init_fn, pcfg, n_devices, seed=, device=)
+    round_fn: Callable     # (spec, pcfg, state, data, w, draws, faults=,
+    #                         reducer=) -> (state, metrics)
+    rounds_fn: Optional[Callable] = None
+    mesh_round: Optional[Callable] = None
+    mesh_rounds: Optional[Callable] = None
+    payload: Optional[Callable] = None
+    stacked_keys: tuple = ()
+    fedgan: bool = False
+    pooled: bool = False   # centralized: one worker on the pooled shards
+
+
+_ALGORITHMS = {
+    "proposed": _Algorithm(
+        make_state=protocol.make_train_state, round_fn=protocol.gan_round,
+        rounds_fn=protocol.gan_rounds, mesh_round=shard_round.mesh_round,
+        mesh_rounds=shard_round.mesh_rounds,
+        payload=shard_round.PROPOSED_PAYLOAD,
+        stacked_keys=shard_round.PROPOSED_STACKED_KEYS),
+    "fedgan": _Algorithm(
+        make_state=fedgan.make_fedgan_state, round_fn=fedgan.fedgan_round,
+        rounds_fn=fedgan.fedgan_rounds,
+        mesh_round=shard_round.fedgan_mesh_round,
+        mesh_rounds=shard_round.fedgan_mesh_rounds,
+        payload=shard_round.FEDGAN_PAYLOAD,
+        stacked_keys=shard_round.FEDGAN_STACKED_KEYS, fedgan=True),
+    "centralized": _Algorithm(
+        make_state=lambda init_fn, pcfg, n, **kw: protocol.make_train_state(
+            init_fn, pcfg, 1, **kw),
+        round_fn=lambda spec, pcfg, st, data, w, draws, **_: (
+            protocol.centralized_step(spec, pcfg, st, data, draws)),
+        pooled=True),
+}
+ALGORITHMS = tuple(_ALGORITHMS)
+FUSED_ALGORITHMS = tuple(n for n, a in _ALGORITHMS.items() if a.rounds_fn)
+MESH_ALGORITHMS = tuple(n for n, a in _ALGORITHMS.items() if a.mesh_round)
 DRIVERS = ("auto", "fused", "host")
 LAYOUTS = ("stacked", "mesh")
 # Algorithm-2 collectives of the mesh layout (core/averaging.py).
@@ -91,20 +162,38 @@ class RoundRecord:
 
 
 def _check_scope(algorithm, driver, layout, tp, pcfg):
-    """Refuse what this port does not run yet, instead of degrading."""
-    if algorithm not in ALGORITHMS:
-        raise ValueError(f"algorithm={algorithm!r} is not ported; the "
-                         f"port runs {ALGORITHMS}")
-    if driver not in DRIVERS:
-        raise ValueError(f"unknown driver {driver!r} (have {DRIVERS})")
+    """Refuse what this port does not run, and what the JAX Trainer
+    refuses, instead of degrading; returns the algorithm's record."""
+    if algorithm not in _ALGORITHMS:
+        raise ValueError(f"unknown algorithm {algorithm!r} "
+                         f"(have {ALGORITHMS})")
+    algo = _ALGORITHMS[algorithm]
     if layout not in LAYOUTS:
         raise ValueError(f"layout={layout!r} is not ported; the port "
                          f"runs {LAYOUTS}")
+    if layout == "mesh" and algo.mesh_round is None:
+        raise ValueError(
+            f"layout='mesh' is not supported for algorithm "
+            f"{algorithm!r} (mesh algorithms: {MESH_ALGORITHMS}); "
+            f"use layout='stacked'")
     if tp != 1:
         raise ValueError(f"tp={tp} is not ported; the port runs tp=1")
-    if pcfg.micro_batch_d is not None or pcfg.micro_batch_g is not None:
-        raise ValueError("micro_batch_d/micro_batch_g are not ported; "
-                         "leave them None")
+    if driver not in DRIVERS:
+        raise ValueError(f"unknown driver {driver!r} (have {DRIVERS})")
+    if driver == "fused" and algo.rounds_fn is None:
+        raise ValueError(
+            f"driver='fused' is not supported for algorithm "
+            f"{algorithm!r} (fused algorithms: {FUSED_ALGORITHMS}); "
+            f"use driver='host' or 'auto'")
+    # the JAX package asserts this in the first round; the port refuses
+    # before it builds anything
+    for name, micro, total in (
+            ("micro_batch_d", pcfg.micro_batch_d, pcfg.sample_size),
+            ("micro_batch_g", pcfg.micro_batch_g, pcfg.server_sample_size)):
+        if micro is not None and micro < total and total % micro:
+            raise ValueError(f"{name}={micro} must divide the batch "
+                             f"{total}")
+    return algo
 
 
 def _check_avg_impl(avg_impl, layout, tp, faults, reducer):
@@ -137,7 +226,7 @@ def _mesh_rank(group, n_devices):
     return dist.get_rank(group)
 
 
-def _check_faults(faults, reducer, pcfg):
+def _check_faults(faults, reducer, pcfg, algorithm, algo):
     """The JAX Trainer's checks of `faults` and `reducer`; returns the
     reducer as a RobustConfig (None for the plain weighted mean)."""
     if isinstance(reducer, str):
@@ -146,6 +235,11 @@ def _check_faults(faults, reducer, pcfg):
         raise ValueError(
             f"reducer must be 'mean', one of {ROBUST_METHODS}, or a "
             f"RobustConfig (got {reducer!r})")
+    if algo.payload is None and (faults is not None or reducer is not None):
+        raise ValueError(
+            f"faults/reducer are not supported for algorithm "
+            f"{algorithm!r} (no device uploads to corrupt or "
+            f"robustly aggregate)")
     if faults is not None and not isinstance(faults,
                                              faults_lib.FaultConfig):
         raise ValueError(f"faults must be a FaultConfig (got {faults!r})")
@@ -157,8 +251,9 @@ def _check_faults(faults, reducer, pcfg):
 
 
 class Trainer:
-    """Runs the proposed protocol or FedGAN over a simulated device fleet
-    on one device (CUDA unless `device` names another).
+    """Runs the proposed protocol, FedGAN or the centralized baseline over
+    a simulated device fleet on one device (CUDA unless `device` names
+    another).
 
     init_fn(generator) -> {"gen", "disc"} builds the initial parameters.
     data_stacked: (K, n_k, ...) array of device shards, or a flat (N, ...)
@@ -189,13 +284,15 @@ class Trainer:
                  partition: Optional[str] = None, labels=None,
                  partition_alpha: float = 0.5, partition_seed: int = 0,
                  sampler: Optional[Callable] = None, device=None):
-        _check_scope(algorithm, driver, layout, tp, pcfg)
-        reducer = _check_faults(faults, reducer, pcfg)
+        algo = _check_scope(algorithm, driver, layout, tp, pcfg)
+        reducer = _check_faults(faults, reducer, pcfg, algorithm, algo)
         _check_avg_impl(avg_impl, layout, tp, faults, reducer)
-        # "auto" as `repro.core.engine.Trainer` resolves it: every ported
-        # algorithm has a fused driver
-        self.driver = "fused" if driver == "auto" else driver
-        self.layout, self.avg_impl = layout, avg_impl
+        # "auto" as `repro.core.engine.Trainer` resolves it: fused where
+        # the algorithm has a fused driver
+        if driver == "auto":
+            driver = "fused" if algo.rounds_fn is not None else "host"
+        self.driver = driver
+        self.layout, self.avg_impl, self.group = layout, avg_impl, group
         self.rank = (_mesh_rank(group, pcfg.n_devices) if layout == "mesh"
                      else None)
         self.device = resolve_device(device)
@@ -215,10 +312,17 @@ class Trainer:
         self.data = data.to(self.device, torch.int64
                             if not data.is_floating_point() else torch.float32)
         n_local = self.data.shape[0 if self.rank is not None else 1]
+        draw_pcfg = pcfg
+        if algo.pooled:
+            # the centralized baseline: one worker on the shards pooled in
+            # device order, drawing as one device over the pooled rows
+            self.data = self.data.reshape((-1,) + self.data.shape[2:])
+            n_local = self.data.shape[0]
+            draw_pcfg = dataclasses.replace(pcfg, n_devices=1)
 
         self.spec, self.pcfg, self.seed = spec, pcfg, seed
-        self.algorithm = algorithm
-        self._fedgan = algorithm == "fedgan"
+        self.algorithm, self._algo = algorithm, algo
+        self._fedgan = algo.fedgan
         self.faults, self.reducer = faults, reducer
         self._fault_prog = faults_lib.fault_program(faults)
         self.n_devices = pcfg.n_devices
@@ -231,38 +335,28 @@ class Trainer:
         self.disc_step_flops = disc_step_flops
         self.gen_step_flops = gen_step_flops
 
-        (make_state, payload_fn, stacked_keys, round_fn, rounds_fn,
-         mesh_fn, mesh_rounds_fn) = (
-            (fedgan.make_fedgan_state, shard_round.FEDGAN_PAYLOAD,
-             shard_round.FEDGAN_STACKED_KEYS, fedgan.fedgan_round,
-             fedgan.fedgan_rounds, shard_round.fedgan_mesh_round,
-             shard_round.fedgan_mesh_rounds) if self._fedgan else
-            (protocol.make_train_state, shard_round.PROPOSED_PAYLOAD,
-             shard_round.PROPOSED_STACKED_KEYS, protocol.gan_round,
-             protocol.gan_rounds, shard_round.mesh_round,
-             shard_round.mesh_rounds))
         if self.rank is None:
-            self._round_fn, self._rounds_fn = round_fn, rounds_fn
-            self.state = make_state(init_fn, pcfg, self.n_devices,
-                                    seed=seed, device=self.device)
+            self._round_fn, self._rounds_fn = algo.round_fn, algo.rounds_fn
+            self.state = algo.make_state(init_fn, pcfg, self.n_devices,
+                                         seed=seed, device=self.device)
         else:
             self._round_fn, self._rounds_fn = (
                 functools.partial(fn, group=group, avg_impl=avg_impl)
-                for fn in (mesh_fn, mesh_rounds_fn))
+                for fn in (algo.mesh_round, algo.mesh_rounds))
             # one worker's optimizer states, unstacked
-            state = make_state(init_fn, pcfg, 1, seed=seed,
-                               device=self.device)
-            self.state = {k: tree_index(v, 0) if k in stacked_keys else v
-                          for k, v in state.items()}
+            state = algo.make_state(init_fn, pcfg, 1, seed=seed,
+                                    device=self.device)
+            self.state = {k: tree_index(v, 0) if k in algo.stacked_keys
+                          else v for k, v in state.items()}
         # The free-riders' stale-upload cache rides in the state.
         self.state = faults_lib.attach_fault_state(self.state, faults,
-                                                   payload_fn)
+                                                   algo.payload)
         self._disc_nparams = protocol.count_params(self.state["disc"])
         self._gen_nparams = protocol.count_params(self.state["gen"])
         self._uplink_bits = protocol.uplink_payload_bits(
             self.state, pcfg, fedgan=self._fedgan)
         self.sampler = sampler or protocol.DrawSampler(
-            spec, pcfg, seed=seed, n_local=n_local,
+            spec, draw_pcfg, seed=seed, n_local=n_local,
             n_params=self._disc_nparams + (
                 self._gen_nparams if self._fedgan else 0),
             device=self.device, faults=faults)
@@ -399,6 +493,92 @@ class Trainer:
             if verbose:
                 self._print_record(rec)
         return self.history
+
+    # ------------------------------------------------------------------
+    # checkpoint / resume
+    # ------------------------------------------------------------------
+    def _global_state(self):
+        """The state as the stacked layout holds it: on a mesh rank, the
+        ranks' own optimizer states gathered into (K, ...) trees."""
+        if self.rank is None:
+            return self.state
+        return {k: tree_map(lambda x: mesh.all_gather(x, self.group), v)
+                if k in self._algo.stacked_keys else v
+                for k, v in self.state.items()}
+
+    def save_checkpoint(self, directory: str):
+        """Write the state with the round index, the clock and the
+        scheduler carry as checkpoint `round_index` of `directory`
+        (module docstring); returns its path. On the mesh layout every
+        rank takes part, rank 0 writes and returns the path, the other
+        ranks return None once it is written."""
+        carry = (self._sched_carry if self.driver == "fused" else
+                 {"rr_cursor": np.int32(self.sched.rr_cursor),
+                  # float64: the numpy EWMA must resume exactly
+                  "ewma_rate": np.asarray(self.sched.ewma_rate)})
+        tree = {"state": self._global_state(),
+                "trainer": {"round_index": np.int64(self._round_index),
+                            "clock": np.float64(self._clock),
+                            "sched_carry": carry}}
+        meta = {"algorithm": self.algorithm, "layout": self.layout,
+                "driver": self.driver}
+        path = None
+        if self.rank in (None, 0):
+            path = checkpoint.save_checkpoint(directory, self._round_index,
+                                              tree, metadata=meta)
+        if self.rank is not None:
+            dist.barrier(self.group)    # written before any rank goes on
+        return path
+
+    def restore(self, directory: str, step: Optional[int] = None):
+        """Load a checkpoint of `save_checkpoint`, the port's or the JAX
+        package's (the latest when `step` is None), and position the
+        Trainer to continue from it; returns its step. The state's
+        structure must match the Trainer's; each leaf takes the
+        Trainer's dtype and device. A bound round graph keeps its
+        static tensors and receives the restored values."""
+        tree, step, _ = checkpoint.load_checkpoint(directory, step)
+        keys = self._algo.stacked_keys if self.rank is not None else ()
+        state = {k: tree_index(v, self.rank) if k in keys else v
+                 for k, v in tree["state"].items()}
+
+        def leaf(ref, x):
+            if tuple(x.shape) != tuple(ref.shape):
+                raise ValueError(f"a leaf of shape {tuple(x.shape)} for "
+                                 f"{tuple(ref.shape)}")
+            return torch.as_tensor(x).to(ref.device, ref.dtype)
+
+        try:
+            state = tree_map(leaf, self.state, state)
+        except (KeyError, TypeError, ValueError) as err:
+            raise ValueError(f"the checkpoint's state does not fit this "
+                             f"Trainer's: {err!r}") from err
+        if len(tree_leaves(state)) != len(tree_leaves(tree["state"])):
+            raise ValueError("the checkpoint's state holds entries this "
+                             "Trainer's does not")
+        extra = tree["trainer"]
+        carry = extra["sched_carry"]
+        if self.driver == "fused":
+            carry = {"rr_cursor": torch.as_tensor(
+                         np.asarray(carry["rr_cursor"], np.int32),
+                         device=self.device),
+                     "ewma_rate": torch.as_tensor(
+                         np.asarray(carry["ewma_rate"], np.float32),
+                         device=self.device)}
+            if self._graph.bound:
+                # a captured graph replays kernels on these addresses
+                graphs.copy_into((self._graph.state, self._graph.carry),
+                                 (state, carry))
+                state, carry = self._graph.state, self._graph.carry
+            self._sched_carry = carry
+        else:
+            self.sched.rr_cursor = int(carry["rr_cursor"])
+            self.sched.ewma_rate = np.asarray(carry["ewma_rate"],
+                                              np.float64)
+        self.state = state
+        self._round_index = int(extra["round_index"])
+        self._clock = float(extra["clock"])
+        return step
 
     @staticmethod
     def _print_record(rec: RoundRecord):

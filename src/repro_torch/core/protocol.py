@@ -15,7 +15,10 @@ One communication round (Section II-B, Section III):
 
 Port of `repro.core.protocol` for the stacked layout: the paper's K
 devices live on one GPU, Algorithm 1 runs device by device, and
-Algorithm 2 reduces the K uploads in one kernel launch.
+Algorithm 2 reduces the K uploads in one kernel launch. Algorithms 1
+and 3 accumulate gradients over microbatches when the config asks
+(`_accumulated_grad`), and `centralized_step` is Fig. 4's centralized
+baseline (one worker on the pooled data).
 
 RANDOMNESS enters as explicit tensors (`RoundDraws`): the shared noise
 per local and server step, the devices' sample indices, the uplink
@@ -214,6 +217,36 @@ def _value_and_grad(objective: Callable, params):
     return value.detach(), tree_unflatten(params, list(grads))
 
 
+def _accumulated_grad(objective: Callable, params, batches, total: int,
+                      micro: Optional[int]):
+    """`_value_and_grad` with gradient accumulation over microbatches.
+    Port of `repro.core.protocol._accumulated_grad`.
+
+    objective(params, *slices) -> scalar mean loss over the slices.
+    batches: tensors with leading axis `total`, sliced jointly, in
+    order, into `total // micro` chunks (`micro` must divide `total`);
+    the loss and gradients are the mean over the chunks. `micro` None or
+    >= total runs the whole batch at once. A forward per chunk: batch
+    statistics are the chunk's, as in the JAX package.
+    """
+    if micro is None or micro >= total:
+        return _value_and_grad(lambda p: objective(p, *batches), params)
+    if total % micro:
+        raise ValueError(f"micro {micro} must divide batch {total}")
+    n_chunks = total // micro
+    loss_sum = torch.zeros((), dtype=torch.float32,
+                           device=batches[0].device)
+    grad_sum = tree_map(torch.zeros_like, params)
+    for i in range(n_chunks):
+        chunk = [b[i * micro:(i + 1) * micro] for b in batches]
+        loss, grads = _value_and_grad(lambda p: objective(p, *chunk),
+                                      params)
+        loss_sum = loss_sum + loss
+        grad_sum = tree_map(torch.add, grad_sum, grads)
+    scale = 1.0 / n_chunks
+    return loss_sum * scale, tree_map(lambda g: g * scale, grad_sum)
+
+
 # ---------------------------------------------------------------------------
 # Algorithm 1 — the devices' local updates
 # ---------------------------------------------------------------------------
@@ -227,6 +260,8 @@ def devices_update(spec: GanModelSpec, pcfg: ProtocolConfig, gen_params,
     The shared noise makes every device's fake batch at local step j
     identical, so G(theta, z_j) runs once per step, without a gradient,
     for all K devices — the same math as one forward per device.
+    With `pcfg.micro_batch_d` the real and fake batches are sliced
+    jointly into microbatches (`_accumulated_grad`).
     Returns (stacked discs, stacked opt states, (K,) last objectives).
     """
     n_devices = data_stacked.shape[0]
@@ -234,17 +269,19 @@ def devices_update(spec: GanModelSpec, pcfg: ProtocolConfig, gen_params,
     discs = [disc_params] * n_devices
     opts = [tree_index(disc_opt_stacked, k) for k in range(n_devices)]
     objs = [None] * n_devices
+
+    def neg_obj(phi, x_mb, fake_mb):
+        return -losses.disc_objective(spec.disc_real(phi, x_mb),
+                                      spec.disc_fake(phi, fake_mb))
+
     for j in range(pcfg.n_d):
         with torch.no_grad():
             fake = spec.gen_apply(gen_params, draws.z_dev[j])
         for k in range(n_devices):
             x = data_stacked[k][draws.idx[j, k]]
-
-            def neg_obj(phi):
-                return -losses.disc_objective(spec.disc_real(phi, x),
-                                              spec.disc_fake(phi, fake))
-
-            loss, grads = _value_and_grad(neg_obj, discs[k])
+            loss, grads = _accumulated_grad(neg_obj, discs[k], [x, fake],
+                                            pcfg.sample_size,
+                                            pcfg.micro_batch_d)
             updates, opts[k] = opt.update(grads, opts[k])
             discs[k] = apply_updates(discs[k], updates)  # eq (3)
             objs[k] = -loss
@@ -259,18 +296,20 @@ def server_update(spec: GanModelSpec, pcfg: ProtocolConfig, gen_params,
                   gen_opt, disc_params, draws: RoundDraws):
     """n_g steps descending eq (1) against the given discriminator, with
     the SAME shared noise stream as the devices. Only G is
-    differentiated."""
+    differentiated. With `pcfg.micro_batch_g` the noise is sliced into
+    microbatches and G runs once a chunk (`_accumulated_grad`)."""
     opt = make_optimizer(pcfg.optimizer, pcfg.lr_g)
     gen, obj = gen_params, None
+
+    def objective(theta, z_mb):
+        fake = spec.gen_apply(theta, z_mb)
+        return losses.gen_objective(spec.disc_fake(disc_params, fake),
+                                    variant=spec.gen_loss_variant)
+
     for j in range(pcfg.n_g):
-        z = draws.z_srv[j]
-
-        def objective(theta):
-            fake = spec.gen_apply(theta, z)
-            return losses.gen_objective(spec.disc_fake(disc_params, fake),
-                                        variant=spec.gen_loss_variant)
-
-        obj, grads = _value_and_grad(objective, gen)
+        obj, grads = _accumulated_grad(objective, gen, [draws.z_srv[j]],
+                                       pcfg.server_sample_size,
+                                       pcfg.micro_batch_g)
         updates, gen_opt = opt.update(grads, gen_opt)
         gen = apply_updates(gen, updates)         # eq (4)
     return gen, gen_opt, obj
@@ -368,6 +407,27 @@ def gan_round(spec: GanModelSpec, pcfg: ProtocolConfig, state,
         # the free-riders' replay of next round: this round's broadcast
         new_state["fault"] = {"stale": state["disc"]}
     return new_state, metrics
+
+
+def centralized_step(spec: GanModelSpec, pcfg: ProtocolConfig, state, data,
+                     draws: RoundDraws):
+    """Centralized baseline (Fig. 4): one worker, same budget — n_d
+    discriminator steps on the pooled data `data` (n, ...) then n_g
+    generator steps against the new discriminator. Port of
+    `repro.core.protocol.centralized_step`: state["disc_opt"] has a
+    leading axis of 1, and `draws` are one device's (idx (n_d, 1, m)
+    into the pooled rows)."""
+    discs, disc_opt, objs = devices_update(
+        spec, pcfg, state["gen"], state["disc"], state["disc_opt"],
+        data[None], draws)
+    disc = tree_index(discs, 0)
+    gen, gen_opt, gen_obj = server_update(
+        spec, pcfg, state["gen"], state["gen_opt"], disc, draws)
+    new_state = {"gen": gen, "disc": disc, "gen_opt": gen_opt,
+                 "disc_opt": disc_opt}
+    return new_state, {"disc_objective": objs[0], "gen_objective": gen_obj,
+                       "participation": torch.ones((), dtype=torch.float32,
+                                                   device=objs.device)}
 
 
 def count_params(tree) -> int:

@@ -145,15 +145,28 @@ def test_entry_points_need_a_device_or_an_explicit_cpu():
         tfid.make_feature_extractor(1)
 
 
-@pytest.mark.parametrize("kw", [
-    dict(algorithm="centralized"),
-    dict(layout="mesh", tp=2), dict(tp=2),
-    dict(pcfg=dict(micro_batch_d=2)), dict(pcfg=dict(micro_batch_g=2)),
-], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
-def test_trainer_refuses_what_is_not_ported(kw):
+@pytest.mark.parametrize("kw,match", [
+    pytest.param(dict(algorithm="centralized", driver="fused"),
+                 "driver='fused' is not supported",
+                 id="algorithm=centralized"),
+    pytest.param(dict(layout="mesh", tp=2), "not ported",
+                 id="layout=mesh-tp=2"),
+    pytest.param(dict(tp=2), "not ported", id="tp=2"),
+    pytest.param(dict(pcfg=dict(micro_batch_d=2, sample_size=5)),
+                 "micro_batch_d=2 must divide the batch 5",
+                 id="pcfg={'micro_batch_d': 2}"),
+    pytest.param(dict(pcfg=dict(micro_batch_g=2, server_sample_size=5)),
+                 "micro_batch_g=2 must divide the batch 5",
+                 id="pcfg={'micro_batch_g': 2}"),
+])
+def test_trainer_refuses_what_is_not_ported(kw, match):
+    """What the port does not run (tp > 1), what the JAX Trainer refuses
+    (the centralized baseline on the fused driver), and a microbatch
+    that does not divide its batch (refused before anything is built;
+    the JAX package asserts it in the first round)."""
     kw = dict(kw)
     _, tpcfg = _configs(n_devices=K, **kw.pop("pcfg", {}))
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(ValueError, match=match):
         Trainer(tspecs.make_dcgan_spec(TCFG), tpcfg,
                 lambda g: tdcgan.gan_init(g, TCFG), _data(), device="cpu",
                 **kw)

@@ -154,3 +154,29 @@ def suite(parts, rank, world_size, device):
     (body name, its leading arguments); returns {name: result}."""
     return {name: globals()[body](*args, rank, world_size, device)
             for name, (body, args) in parts.items()}
+
+
+def checkpoint_run(small, data, run, directory, rank, world_size, device):
+    """`Trainer(layout="mesh")`: one round of the run's driver, then
+    `save_checkpoint(directory)`; a second mesh Trainer restores it.
+    Returns (the first Trainer's state, the restored Trainer's state,
+    what save_checkpoint returned)."""
+    from repro_torch.configs import ProtocolConfig
+    from repro_torch.core import Trainer
+    from repro_torch.models import dcgan
+    _setup()
+    cfg, spec = _dcgan(small)
+
+    def make():
+        return Trainer(spec, ProtocolConfig(**run["pcfg"]),
+                       lambda g: dcgan.gan_init(g, cfg), data,
+                       seed=run["seed"], algorithm=run["algorithm"],
+                       layout="mesh", avg_impl=run["impl"],
+                       driver=run["driver"], device=device)
+
+    tr = make()
+    tr.run(1)
+    path = tr.save_checkpoint(directory)
+    again = make()
+    again.restore(directory)
+    return tr.state, again.state, path
