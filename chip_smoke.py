@@ -6,6 +6,9 @@
                                          # and trimmed_wavg kernels of the
                                          # checkout in DIR timed beside
                                          # this one's
+    python3 chip_smoke.py --allocator-ab # phases 1-2, then host-driver
+                                         # rounds with the allocator's
+                                         # expandable segments off and on
 
 Phases, in order; any failure exits non-zero:
   1. device   the card's name and power limit (nvidia-smi); TF32 off for
@@ -23,10 +26,14 @@ Phases, in order; any failure exits non-zero:
               kind and both KMAX buckets), N % 4 != 0 and a payload 4
               bytes off 16-byte alignment (the scalar path), its HBM
               share beside wavg's on the same payload, and the honest
-              rows' range; flash_attn at 27 shapes, D 32-256 (ragged
+              rows' range; flash_attn at 29 shapes, D 32-256 (ragged
               tiles, windows, bidirectional, bf16, strided and unaligned
               q), its refusal of D 96, timed at the main shape, qwen3-
-              1.7b's heads and gemma3-12b's D 256 beside SDPA;
+              1.7b's heads, gemma3-12b's D 256, minitron-4b's shape and
+              gemma3-12b's windowed local layers (2 x 2048 tokens,
+              window 1024) beside SDPA (an explicit boolean mask for
+              the window), each SDPA call first held to the plain
+              version;
               ssd_scan at 26 shapes (one chunk, 128 chunks, ragged last
               chunks, groups, p 32-128, n 16-160, bf16 x at the main
               shape), its
@@ -45,8 +52,9 @@ Phases, in order; any failure exits non-zero:
               small mesh rounds, card against card: 4 gloo ranks on this
               card (ring, pallas and jnp serial, ring parallel, FedGAN
               ring) against the stacked round on the card
-  5. train    five main paths, through `Trainer.run`, each with the
-              launch counts set to 0 just before it and read just after;
+  5. train    seven main paths, through `Trainer.run` (the last through
+              the backbone spec), each with the launch counts set to 0
+              just before it and read just after;
               the first three on the full-width DCGAN (K=10, 64x64):
               a. the protocol: 3 serial rounds and 3 parallel rounds with
                  best-channel scheduling at ratio 0.5; one wavg launch per
@@ -75,6 +83,17 @@ Phases, in order; any failure exits non-zero:
                  layers cut to 4 (K=4, m=4, seq_len 1024): 88 flash_attn
                  launches and one wavg launch per round, finite values,
                  one token FID, the peak device memory
+              f. minitron-4b at full width, its 32 layers cut to 2 and its
+                 vocabulary to 32,768 (K=4, m=4, seq_len 1024), as d: 44
+                 flash_attn launches and one wavg launch per round
+              g. gemma3-12b at full width, one 5:1 group of its 48 layers
+                 and vocabulary 32,768: D on 2 real sequences of 2,048
+                 tokens, G, D on G's output, the backward of D's
+                 objective into D and G; 18 flash_attn launches (15 with
+                 the window of 1,024), finite gradients, the peak device
+                 memory, D's logits against the port on the CPU (rtol
+                 1e-4). Its GAN round waits for tensor parallelism or
+                 bf16 (ROADMAP A items 8 and 10)
   6. profile  one more round of the DCGAN protocol (after 5b; that trainer
               is then freed), of the mamba2-130m backbone-GAN (after 5c;
               freed too) and of the granite-3-2b backbone-GAN (after 5d)
@@ -87,19 +106,22 @@ Phases, in order; any failure exits non-zero:
               driver, same seed, fading off: the DCGAN protocol (K=10,
               3 serial and 3 parallel rounds, round_robin at 0.5), its
               hostile path under the trimmed mean (3 rounds), FedGAN (2
-              rounds), the MLP-GAN (K=8, rounds a second over 50 rounds)
-              and mamba2-130m at full width (K=4, 3 rounds, peak device
-              memory), under cuDNN's deterministic algorithms: masks,
+              rounds), the MLP-GAN (K=8, rounds a second over 50 rounds),
+              mamba2-130m at full width,
+              granite-3-2b (4 layers) and minitron-4b (2 layers) (K=4, 3
+              rounds each, peak device memory), under cuDNN's
+              deterministic algorithms: masks,
               weights, every round's metrics and the parameters bitwise
               equal, wallclocks within rtol 1e-6, a planted stale replay
               caught by the same check, two host runs with cuDNN's
               nondeterministic algorithms read beside it; seconds a
               round, and one replayed round profiled: 1 wavg (0 under the trimmed mean, 1
               trimmed_wavg), 528 of each ssd_scan kernel a mamba2 round,
-              device busy against wall. The first fused round runs
-              eagerly under set_sync_debug_mode("error"). granite-3-2b
-              stays on the host driver. (The mesh path 5e has a fused
-              run too: ranks run uncaptured, gloo goes through the host.)
+              88 flash_attn a granite round, 44 a minitron round, device
+              busy against wall. The first fused round runs eagerly
+              under set_sync_debug_mode("error"). (The mesh path 5e has
+              a fused run too: ranks run uncaptured, gloo goes through
+              the host.)
   8. experiments  a. resume on the card: the full DCGAN (K=10, fused,
               deterministic cuDNN, fading on), 4 rounds against 2
               rounds, `save_checkpoint`, 2 more (the graph captured),
@@ -116,7 +138,8 @@ Phases, in order; any failure exits non-zero:
               card (no batch-norm: equal to f32 round-off)
               c. the "experiments" path: the quickstart twin at its
               defaults (20 rounds, its checkpoint read back), then fig3,
-              fig4, fig5 and fig6 at the paper's full width
+              fig4, fig5 (under cuDNN's deterministic algorithms, as
+              d's ranks) and fig6 at the paper's full width
               (REPRO_BENCH_FULL=1, 2 rounds, FID at round 2) and
               fig_robust --smoke with its identity gate; each figure's
               seconds, seconds a round, final FIDs and the wavg and
@@ -126,6 +149,19 @@ Phases, in order; any failure exits non-zero:
               held to its profiled device timeline); then each kernel
               against its plain version at every shape the path gave
               its wrapper
+              d. the "mesh_experiments" path, every rank's launches
+              counted and summed: fig5_fedgan --layout mesh --smoke (10
+              gloo ranks on the card, started once for both settings)
+              against c's stacked runs of the same two settings, and
+              mamba2-130m at full width on 4 ranks (host driver, 2
+              rounds, each group recomputed in the backward) against
+              the first 2 of phase 7's host-driver rounds: masks,
+              weights and wallclock bitwise, metrics within 1e-5
+              relative, FIDs within 1e-4; then wavg against its plain
+              version at every shape the ranks gave it.
+              (fedgan_compare --layout mesh, the same two algorithms on
+              the same ranks, is left to the CPU tests, which hold it to
+              its stacked run.)
 The last two lines are the `kernels` JSON line and
 {"ok": true, "device": {...}}.
 """
@@ -142,10 +178,10 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
-
 # NVIDIA H100 SXM data sheet: HBM bandwidth and the float32 rate outside
 # the tensor cores ...
 HBM_BYTES_PER_S = 3.35e12
@@ -161,6 +197,7 @@ K_MAIN, N_MAIN = 10, 2_765_568  # Algorithm 2 on the DCGAN discriminator
 # 4-layer granite-3-2b one, K = 4 devices
 K_BACKBONE, N_BACKBONE = 4, 129_574_080
 N_GRANITE = 348_153_856
+N_MINITRON = 330_319_872        # 2 of minitron-4b's 32 layers
 N_FEDGAN = 6_342_272            # FedGAN's payload: discriminator + generator
 EDGE_N = (1, 3, 2048, 2049)
 EDGE_K = (1, 7, 64)
@@ -186,6 +223,13 @@ FLASH_MAIN = dict(b=4, s=1024, h=32, kv=8, d=64)
 FLASH_QWEN3 = dict(b=4, s=1024, h=16, kv=8, d=128)
 # gemma3-12b's head_dim (256) over 16 heads and 8 kv heads, one sequence
 FLASH_GEMMA3 = dict(b=1, s=1024, h=16, kv=8, d=256)
+# The attention of the full-width minitron-4b backbone-GAN (b = m = 4
+# sequences of 1024 tokens, 24 heads of 128 over 8), and of gemma3-12b's
+# local layers on phase 5's 2 sequences of 2048 tokens, whose sliding
+# window of 1024 keys masks a quarter of the causal pairs.
+FLASH_MINITRON = dict(b=4, s=1024, h=24, kv=8, d=128)
+FLASH_GEMMA3_LOCAL = dict(b=2, s=2048, h=16, kv=8, d=256)
+GEMMA3_WINDOW = 1024
 FLASH_ATOL, FLASH_ATOL_BF16 = 2e-5, 0.05   # as tests/test_kernels.py
 # The backbone-GAN paths: full width, K = 4 devices, 4,096 tokens a
 # batch; granite-3-2b's 40 layers cut to 4, so that K discriminators with
@@ -195,6 +239,22 @@ MAMBA = dict(arch="mamba2-130m", k=4, n_d=2, n_g=2, m=8, seq=512,
              layers=24, sizes=(168_286_656, 129_574_080), per_round=528)
 GRANITE = dict(arch="granite-3-2b", k=4, n_d=2, n_g=2, m=4, seq=1024,
                layers=4, sizes=(449_083_392, 348_153_856), per_round=88)
+# minitron-4b at full width: 32 layers cut to 2 and the vocabulary of
+# 256,000 to 32,768 (the synthetic token table is (8, vocab, vocab // 16)
+# int64: 262 GB at the full vocabulary, 4.3 GB here), so that K
+# discriminators with Adam fit one card beside the generator: K D + G
+# = 1.75 G parameters, granite's path 1.84 G.
+MINITRON = dict(arch="minitron-4b", k=4, n_d=2, n_g=2, m=4, seq=1024,
+                layers=2, vocab=32_768, sizes=(431_373_312, 330_319_872),
+                per_round=44)
+# gemma3-12b at full width: one 5:1 group (5 windowed layers and a global
+# one) of its 48 layers, the vocabulary cut to 32,768, 2 sequences of
+# 2,048 tokens, forward and backward only. Its GAN round waits for
+# tensor parallelism across cards or bf16 (ROADMAP A items 8 and 10):
+# K=2 discriminators with float32 Adam need (2 D + G) x 16 B = 73 GB
+# before activations.
+GEMMA3 = dict(arch="gemma3-12b", layers=6, vocab=32_768, b=2, seq=2048,
+              sizes=(1_611_747_072, 1_485_430_272))
 
 
 def launches_per_round(bb):
@@ -245,9 +305,10 @@ def check_wavg(torch, ops):
         return x, w / w.sum()
 
     mains = [(K_MAIN, N_MAIN), (K_BACKBONE, N_BACKBONE),
-             (K_BACKBONE, N_GRANITE)]
+             (K_BACKBONE, N_GRANITE), (K_BACKBONE, N_MINITRON)]
+    # FedGAN's two nets as one flat payload: the mesh layout's all-gather
     shapes = mains + [(k, N_MAIN) for k in EXPERIMENT_K] + [
-        (k, n) for k in EDGE_K for n in EDGE_N]
+        (K_MAIN, N_FEDGAN)] + [(k, n) for k in EDGE_K for n in EDGE_N]
     max_err = {}
     for k, n in shapes:
         x, w = inputs(k, n)
@@ -289,7 +350,9 @@ def check_wavg(torch, ops):
             "backbone_shape": {"k": K_BACKBONE, "n": N_BACKBONE,
                                **timed[(K_BACKBONE, N_BACKBONE)]},
             "granite_shape": {"k": K_BACKBONE, "n": N_GRANITE,
-                              **timed[(K_BACKBONE, N_GRANITE)]}}
+                              **timed[(K_BACKBONE, N_GRANITE)]},
+            "minitron_shape": {"k": K_BACKBONE, "n": N_MINITRON,
+                               **timed[(K_BACKBONE, N_MINITRON)]}}
 
 
 def check_trimmed(torch, ops):
@@ -552,12 +615,19 @@ def flash_inputs(torch, gen, b, s, h, kv, d, *, dtype=None, strided=False,
     return q, k, v
 
 
-def flash_cost(b, s, h, kv, d):
+def causal_pairs(s, window=None):
+    """The (query, key) pairs of a causal call over s positions: query i
+    sees i + 1 keys, or the last `window` of them."""
+    w = s if window is None else min(window, s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def flash_cost(b, s, h, kv, d, window=None):
     """(bytes, flop) of one causal call: q, k, v, out and lse once each;
-    the causal triangle of q.k and of p.v, 2 D flops each per (row, key)
-    pair."""
+    the causal pairs (inside the window) of q.k and of p.v, 2 D flops
+    each per (row, key) pair."""
     return (4 * (2 * b * s * h * d + 2 * b * s * kv * d + b * h * s),
-            4 * b * h * d * s * (s + 1) // 2)
+            4 * b * h * d * causal_pairs(s, window))
 
 
 def flash_bounds(n_bytes, flops):
@@ -574,9 +644,11 @@ def check_flash(torch, ops, ref):
     port's blockwise flash_ref) at the main path's shape and at edge
     shapes, D 32 to 256; the wrapper's refusal of another head_dim;
     timings of the kernel, the plain version and PyTorch's
-    scaled_dot_product_attention (never called by the port) at the main
-    shape, qwen3-1.7b's heads and gemma3-12b's (D 256). Returns the
-    kernel's JSON entry (launches unset)."""
+    scaled_dot_product_attention (never called by the port; held to the
+    plain version first, a window as an explicit boolean mask) at the
+    main shape, qwen3-1.7b's heads, gemma3-12b's (D 256), minitron-4b's
+    and gemma3-12b's windowed local layers. Returns the kernel's JSON
+    entry (launches unset)."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     small = dict(b=2, h=4, kv=2, d=64)
     bf16 = torch.bfloat16
@@ -600,6 +672,10 @@ def check_flash(torch, ops, ref):
               (dict(small, s=200, d=256), dict(dtype=bf16, window=9)),
               (dict(FLASH_GEMMA3, s=257), dict(strided=True))]
     cases += [(dict(small, s=100), dict(unaligned=True))]
+    # minitron-4b's shape; gemma3-12b's local layers, where the window
+    # bites
+    cases += [(FLASH_MINITRON, {}),
+              (FLASH_GEMMA3_LOCAL, dict(window=GEMMA3_WINDOW))]
     max_err = {}
     for i, (shape, kw) in enumerate(cases):
         kw = dict(kw)
@@ -634,23 +710,38 @@ def check_flash(torch, ops, ref):
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     timed = {}
-    for name, shape in (("main", FLASH_MAIN), ("qwen3", FLASH_QWEN3),
-                        ("gemma3", FLASH_GEMMA3)):
+    for name, shape, window in (
+            ("main", FLASH_MAIN, None), ("qwen3", FLASH_QWEN3, None),
+            ("gemma3", FLASH_GEMMA3, None), ("minitron", FLASH_MINITRON, None),
+            ("gemma3_local", FLASH_GEMMA3_LOCAL, GEMMA3_WINDOW)):
         b, s, h, kv, d = (shape[key] for key in "b s h kv d".split())
         # three input sets, together past L2
         sets = [flash_inputs(torch, gen, **shape) for _ in range(3)]
         kernel_ms = time_ms(lambda q, k, v: ops._kernel_forward(
-            q, k, v, True, None), sets)
-        plain_ms = time_ms(lambda q, k, v: ref.flash_attention_plain(q, k, v),
-                           sets, reps=5, per_rep=3, warmup=1)
+            q, k, v, True, window), sets)
+        plain_ms = time_ms(lambda q, k, v: ref.flash_attention_plain(
+            q, k, v, window=window), sets, reps=5, per_rep=3, warmup=1)
         heads_first = [tuple(t.transpose(1, 2).contiguous() for t in qkv)
                        for qkv in sets]
-        library_ms = time_ms(lambda q, k, v: sdpa(q, k, v, is_causal=True,
-                                                  enable_gqa=True),
-                             heads_first)
-        n_bytes, flops = flash_cost(b, s, h, kv, d)
+        if window is None:
+            library = functools.partial(sdpa, is_causal=True,
+                                        enable_gqa=True)
+        else:    # SDPA takes a window as an explicit boolean mask
+            pos = torch.arange(s, device="cuda")
+            band = ((pos[None, :] <= pos[:, None])
+                    & (pos[None, :] > pos[:, None] - window))
+            library = functools.partial(sdpa, attn_mask=band,
+                                        enable_gqa=True)
+        # the library call computes the same function
+        torch.testing.assert_close(
+            library(*heads_first[0]).transpose(1, 2),
+            ref.flash_attention_plain(*sets[0], window=window)[0],
+            rtol=0, atol=1e-4)
+        library_ms = time_ms(library, heads_first)
+        n_bytes, flops = flash_cost(b, s, h, kv, d, window)
         simt_ms, tc_ms = flash_bounds(n_bytes, flops)
-        print(f"flash_attn {name} b={b} s={s} H={h} KV={kv} D={d} causal "
+        print(f"flash_attn {name} b={b} s={s} H={h} KV={kv} D={d} causal"
+              f"{'' if window is None else f' window {window}'} "
               f"f32: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"SDPA {library_ms:.4f} ms; {flops} flop, {n_bytes} B: "
               f"{flops / kernel_ms / 1e9:.3f} TFLOP/s; the f32 SIMT bound "
@@ -668,7 +759,13 @@ def check_flash(torch, ops, ref):
             "replaces": "src/repro/kernels/flash_attn/kernel.py:83",
             "launches": None, "max_abs_err": max_err[0], **timed["main"],
             "qwen3_shape": {**FLASH_QWEN3, **timed["qwen3"]},
-            "gemma3_shape": {**FLASH_GEMMA3, **timed["gemma3"]}}
+            "gemma3_shape": {**FLASH_GEMMA3, **timed["gemma3"]},
+            "minitron_shape": {**FLASH_MINITRON, **timed["minitron"],
+                               "max_abs_err": max_err[len(cases) - 2]},
+            "gemma3_local_shape": {**FLASH_GEMMA3_LOCAL,
+                                   "window": GEMMA3_WINDOW,
+                                   **timed["gemma3_local"],
+                                   "max_abs_err": max_err[len(cases) - 1]}}
 
 
 @contextlib.contextmanager
@@ -1074,33 +1171,21 @@ def train(torch, ops, robust_ops):
     return launches, trainer, (spec, cfg, shards), first_round
 
 
-def train_backbone(torch, wavg_ops, kernel_ops, kernel, bb):
-    """A backbone-GAN path: Trainer.run on the full-width `bb["arch"]`
-    (depth cut to bb["layers"] where that is less) with K=4, n_d=n_g=2,
-    m=M=bb["m"], seq_len bb["seq"], Adam at 1e-3, 16-bit uplink, over
-    token data: 2 serial rounds with every device scheduled, then 1
-    parallel round with best-channel scheduling at ratio 0.5. Each round
-    launches wavg once and `kernel` once per sublayer forward. Returns
-    the path's launch counts and its last trainer."""
-    import resource
-    import numpy as np
-    from repro_torch.configs import ProtocolConfig, get_arch_config
-    from repro_torch.core import Trainer, protocol
-    from repro_torch.data import make_token_dataset, partition
-    from repro_torch.metrics import fid_score, make_token_feature_extractor
-    from repro_torch.models import gan
-    from repro_torch.models.specs import make_backbone_spec
-    from repro_torch.tree import tree_leaves
-
+def backbone_config(bb):
+    """The full-width config of `bb["arch"]`, its depth cut to
+    bb["layers"] and its vocabulary to bb.get("vocab"), where less."""
+    from repro_torch.configs import get_arch_config
     cfg = get_arch_config(bb["arch"])
-    if bb["layers"] < cfg.n_layers:
-        cfg = dataclasses.replace(cfg, n_layers=bb["layers"])
-    per_round = bb["per_round"]
-    if launches_per_round(bb) != per_round:
-        raise AssertionError(f"{cfg.name}: {launches_per_round(bb)} "
-                             f"sublayer forwards a round, not {per_round}")
-    spec = make_backbone_spec(cfg, bb["seq"], remat=False,
-                              gen_loss_variant="nonsaturating")
+    return dataclasses.replace(
+        cfg, n_layers=min(cfg.n_layers, bb["layers"]),
+        vocab=min(cfg.vocab, bb.get("vocab", cfg.vocab)))
+
+
+def token_shards(bb, cfg):
+    """The path's token data, K shards of 32 sequences of bb["seq"]
+    tokens from `make_token_dataset`'s seed: (the tokens, the shards)."""
+    import resource
+    from repro_torch.data import make_token_dataset, partition
     t0 = time.perf_counter()
     toks, _ = make_token_dataset(bb["k"] * 32, bb["seq"], cfg.vocab)
     print(f"{cfg.name} token data ({bb['k'] * 32} x {bb['seq']}, vocab "
@@ -1108,7 +1193,33 @@ def train_backbone(torch, wavg_ops, kernel_ops, kernel, bb):
           f"peak RSS "
           f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.2f}"
           f" GiB")
-    shards = partition(toks, bb["k"])
+    return toks, partition(toks, bb["k"])
+
+
+def train_backbone(torch, wavg_ops, kernel_ops, kernel, bb):
+    """A backbone-GAN path: Trainer.run on the full-width `bb["arch"]`
+    (depth and vocabulary cut by `backbone_config`) with K=4, n_d=n_g=2,
+    m=M=bb["m"], seq_len bb["seq"], Adam at 1e-3, 16-bit uplink, over
+    token data: 2 serial rounds with every device scheduled, then 1
+    parallel round with best-channel scheduling at ratio 0.5. Each round
+    launches wavg once and `kernel` once per sublayer forward. Returns
+    the path's launch counts, its last trainer and its token shards."""
+    import numpy as np
+    from repro_torch.configs import ProtocolConfig
+    from repro_torch.core import Trainer, protocol
+    from repro_torch.metrics import fid_score, make_token_feature_extractor
+    from repro_torch.models import gan
+    from repro_torch.models.specs import make_backbone_spec
+    from repro_torch.tree import tree_leaves
+
+    cfg = backbone_config(bb)
+    per_round = bb["per_round"]
+    if launches_per_round(bb) != per_round:
+        raise AssertionError(f"{cfg.name}: {launches_per_round(bb)} "
+                             f"sublayer forwards a round, not {per_round}")
+    spec = make_backbone_spec(cfg, bb["seq"], remat=False,
+                              gen_loss_variant="nonsaturating")
+    toks, shards = token_shards(bb, cfg)
     runs = [(2, dict(schedule="serial", scheduler="all",
                      scheduling_ratio=1.0)),
             (1, dict(schedule="parallel", scheduler="best_channel",
@@ -1178,7 +1289,113 @@ def train_backbone(torch, wavg_ops, kernel_ops, kernel, bb):
     if not np.isfinite(fid):
         raise AssertionError(f"token FID {fid}")
     print(f"token FID after the last {cfg.name} round: {fid:.4f}")
-    return launches, trainer
+    return launches, trainer, shards
+
+
+def check_gemma3(torch, flash_ops):
+    """Phase 5f, the gemma3-12b path: one 5:1 group at full width (d_model
+    3,840, 16 heads of 256 over 8, d_ff 15,360), vocabulary 32,768, on
+    GEMMA3's 2 sequences of 2,048 tokens through `make_backbone_spec`:
+    D on real tokens, G, D on G's output, then the backward of D's
+    objective into D and G. Each backbone pass launches flash_attn 6
+    times, 5 with the window of 1,024 keys and 1 without; the gradients
+    are finite; D's logits on the real tokens equal the port's on the
+    CPU from the same parameters (rtol 1e-4). Returns the path's
+    flash_attn launches."""
+    import numpy as np
+    from repro_torch.core import protocol
+    from repro_torch.models import gan
+    from repro_torch.models.specs import make_backbone_spec
+    from repro_torch.tree import tree_leaves, tree_map
+    bb = GEMMA3
+    cfg = backbone_config(bb)
+    spec = make_backbone_spec(cfg, bb["seq"], remat=False,
+                              gen_loss_variant="nonsaturating")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = gan.gan_init(torch.Generator("cuda").manual_seed(0), cfg)
+    sizes = tuple(protocol.count_params(params[p]) for p in ("gen", "disc"))
+    if sizes != bb["sizes"]:
+        raise AssertionError(f"{cfg.name} sizes {sizes}")
+    for x in tree_leaves(params):
+        x.requires_grad_(True)
+    tokens = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab, (bb["b"], bb["seq"])), device="cuda")
+    z = spec.sample_z(torch.Generator("cuda").manual_seed(1), bb["b"])
+    windows = []
+    wrapper = flash_ops.flash_attention
+
+    def recording(q, k, v, *, causal=True, window=None):
+        windows.append(window)
+        return wrapper(q, k, v, causal=causal, window=window)
+
+    flash_ops.flash_attention = recording
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flash_ops.launches = 0                     # the path starts here
+        real = spec.disc_real(params["disc"], tokens)
+        fake = spec.disc_fake(params["disc"],
+                              spec.gen_apply(params["gen"], z))
+        objective = (torch.nn.functional.softplus(-real).mean()
+                     + torch.nn.functional.softplus(fake).mean())
+        torch.cuda.synchronize()
+        forward_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        objective.backward()
+        torch.cuda.synchronize()
+        backward_s = time.perf_counter() - t0
+        launches = flash_ops.launches              # ... and ends here
+    finally:
+        flash_ops.flash_attention = wrapper
+    group = [GEMMA3_WINDOW] * 5 + [None]
+    if launches != 3 * 6 or windows != group * 3:
+        raise AssertionError(f"{cfg.name}: {launches} flash_attn launches, "
+                             f"windows {windows}")
+    # G's embedding table and lm_head serve the LM mode; GAN training
+    # reads neither (models/gan.py), so they take no gradient
+    unused = {id(x) for x in tree_leaves({k: params["gen"][k]
+                                          for k in ("embed", "lm_head")})}
+    grads = [x.grad for x in tree_leaves(params) if id(x) not in unused]
+    if any(g is None or not bool(torch.isfinite(g).all()) for g in grads):
+        raise AssertionError(f"{cfg.name}: a missing or non-finite "
+                             f"gradient")
+    if any(x.grad is not None for x in tree_leaves(params)
+           if id(x) in unused):
+        raise AssertionError(f"{cfg.name}: a gradient into G's LM-mode "
+                             f"leaves")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not bool(torch.isfinite(objective)):
+        raise AssertionError(f"{cfg.name}: objective {objective}")
+    print(f"{cfg.name} path (one 5:1 group of its 48 layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab}, {bb['b']} x {bb['seq']} "
+          f"tokens): {sizes[0]} G / {sizes[1]} D parameters; forward "
+          f"(D real, G, D fake) {forward_s:.3f} s, backward into D and G "
+          f"{backward_s:.3f} s; {launches} flash_attn launches, 3 passes "
+          f"of 5 windowed ({GEMMA3_WINDOW} keys) and 1 global; "
+          f"{len(grads)} gradients, every one finite (none into G's "
+          f"embedding and lm_head); peak device memory {peak:.2f} GiB")
+
+    disc_cpu = tree_map(lambda x: x.detach().cpu(), params["disc"])
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        real_cpu = spec.disc_real(disc_cpu, tokens.cpu())
+    cpu_s = time.perf_counter() - t0
+    torch.testing.assert_close(real.detach().cpu(), real_cpu, rtol=1e-4,
+                               atol=0)
+    print(f"{cfg.name} D logits on the real tokens, card "
+          f"{real.detach().cpu().tolist()} against the CPU "
+          f"{real_cpu.tolist()} (rtol 1e-4; the CPU forward {cpu_s:.2f} s "
+          f"on {torch.get_num_threads()} threads). Its GAN round waits for "
+          f"tensor parallelism across cards or bf16 (ROADMAP A items 8 and "
+          f"10): K=2 discriminators with float32 Adam need "
+          f"(2 x {sizes[1]} + {sizes[0]}) x 16 B = "
+          f"{(2 * sizes[1] + sizes[0]) * 16 / 1e9:.1f} GB before "
+          f"activations")
+    del params, grads, disc_cpu
+    torch.cuda.empty_cache()
+    return {"flash_attn": launches, "forward_s": forward_s,
+            "backward_s": backward_s, "peak_gib": peak, "cpu_s": cpu_s}
 
 
 # The backwards that run plain torch code, each inside a named
@@ -1788,6 +2005,7 @@ def train_mesh(torch, shards, first_round):
 # (a regular expression each: wavg_kernel ends trimmed_wavg_kernel too).
 REPLAY_KERNELS = {"wavg": r"(?<!trimmed_)wavg_kernel",
                   "trimmed_wavg": r"trimmed_wavg_kernel",
+                  "flash_attn": r"flash_attn_kernel",
                   **{name: name for name in SSD_KERNELS}}
 
 
@@ -1863,7 +2081,7 @@ def driver_mismatch(host, fused):
 
 
 def compare_drivers(torch, label, make_trainer, n_rounds, *, want,
-                    peak=False, planted=False):
+                    peak=False, planted=False, keep=None):
     """`n_rounds` rounds of `make_trainer("host")`, then of
     `make_trainer("fused")`, under cuDNN's deterministic algorithms
     (`train_fused`), so that the two drivers run the same kernels on the
@@ -1874,8 +2092,8 @@ def compare_drivers(torch, label, make_trainer, n_rounds, *, want,
     with `peak`, peak device memory; then profiles one replayed round,
     whose kernels must launch `want` times. With `planted`, the check
     must also fail on a fused run whose slots keep round 0's draws (a
-    replay that is not refilled). Returns a summary for the `fused`
-    JSON line."""
+    replay that is not refilled). With `keep`, the host run's records
+    go to keep[label]. Returns a summary for the `fused` JSON line."""
     out, runs = {}, {}
     for driver in ("host", "fused"):
         torch.cuda.empty_cache()
@@ -1897,6 +2115,8 @@ def compare_drivers(torch, label, make_trainer, n_rounds, *, want,
             and graph.replays == n_rounds - 1):
         raise AssertionError(f"{label}: eager {graph.eager_rounds}, "
                              f"replays {graph.replays}")
+    if keep is not None:
+        keep[label] = runs["host"][0]
     wrong = driver_mismatch(runs["host"], runs["fused"])
     if wrong:
         raise AssertionError(f"{label}: the fused driver differs from the "
@@ -2001,27 +2221,28 @@ def mlp_rounds_per_s(torch, n_rounds=50):
     return out
 
 
-def train_fused(torch, shards, card):
+def train_fused(torch, shards, card, tokens):
     """Phase 7 on `card` (nvidia-smi's name and power limit, printed with
     the results): each run under the host driver, then the fused driver,
     from the same seed, fading off (round_robin masks deterministic):
     the full DCGAN protocol (K=10, serial and parallel, round_robin at
     0.5), its hostile-worker path under the trimmed mean (dropout from
     the shared slots), FedGAN, the MLP-GAN's rounds a second, and the
-    full-width mamba2-130m (K=4, with its peak memory)."""
-    from repro_torch.configs import (DCGANConfig, ProtocolConfig,
-                                     get_arch_config)
+    backbone-GANs of phase 5 (K=4, with their peak memory, on phase 5's
+    `tokens`): mamba2-130m, granite-3-2b (4 layers) and minitron-4b (2
+    layers, vocabulary 32,768). Returns the results and each backbone's
+    host-driver records, by architecture."""
+    from repro_torch.configs import DCGANConfig, ProtocolConfig
     from repro_torch.core import Trainer
     from repro_torch.core.channel import ChannelConfig
     from repro_torch.core.faults import FaultConfig
-    from repro_torch.data import make_token_dataset, partition
     from repro_torch.kernels.robust_avg.ops import RobustConfig
     from repro_torch.models import dcgan, gan
     from repro_torch.models.specs import make_backbone_spec, make_dcgan_spec
 
     cfg = DCGANConfig()
     spec = make_dcgan_spec(cfg, gen_loss_variant="nonsaturating")
-    results = {}
+    results, host_records = {}, {}
 
     def dcgan_run(driver, algorithm="proposed", faults=None, reducer=None,
                   **settings):
@@ -2044,22 +2265,17 @@ def train_fused(torch, shards, card):
         ("DCGAN FedGAN", dict(schedule="serial", algorithm="fedgan", **rr), 2,
          {"wavg": 2}),
     ]
-    bb = MAMBA
-    mcfg = get_arch_config(bb["arch"])
-    mspec = make_backbone_spec(mcfg, bb["seq"], remat=False,
-                               gen_loss_variant="nonsaturating")
-    toks, _ = make_token_dataset(bb["k"] * 32, bb["seq"], mcfg.vocab)
-    tshards = partition(toks, bb["k"])
-    del toks
-
-    def mamba_run(driver):
+    def backbone_run(bb, driver):
+        cfg = backbone_config(bb)
         pcfg = ProtocolConfig(n_devices=bb["k"], n_d=bb["n_d"],
                               n_g=bb["n_g"], sample_size=bb["m"],
                               server_sample_size=bb["m"], lr_d=1e-3,
                               lr_g=1e-3, optimizer="adam", schedule="serial",
                               scheduler="round_robin", scheduling_ratio=0.5)
-        return Trainer(mspec, pcfg, lambda g: gan.gan_init(g, mcfg), tshards,
-                       seed=0, driver=driver,
+        return Trainer(make_backbone_spec(cfg, bb["seq"], remat=False,
+                                          gen_loss_variant="nonsaturating"),
+                       pcfg, lambda g: gan.gan_init(g, cfg),
+                       tokens[bb["name"]], seed=0, driver=driver,
                        channel_cfg=ChannelConfig(n_devices=bb["k"],
                                                  fading=False))
 
@@ -2080,15 +2296,20 @@ def train_fused(torch, shards, card):
                       f"nondeterministic algorithms allowed: parameters "
                       f"{floor:.3e} apart after {n_rounds} rounds")
         results["MLP-GAN rounds/s"] = mlp_rounds_per_s(torch)
-        results["mamba2-130m"] = compare_drivers(
-            torch, "mamba2-130m", mamba_run, 3, peak=True,
-            want={"wavg": 1,
-                  **{name: bb["per_round"] for name in SSD_KERNELS}})
+        for name, bb, kernels in (("mamba2", MAMBA, SSD_KERNELS),
+                                  ("granite", GRANITE, ("flash_attn",)),
+                                  ("minitron", MINITRON, ("flash_attn",))):
+            bb = dict(bb, name=name)
+            results[bb["arch"]] = compare_drivers(
+                torch, bb["arch"], functools.partial(backbone_run, bb), 3,
+                peak=True, keep=host_records,
+                want={"wavg": 1, **{kernel: bb["per_round"]
+                                    for kernel in kernels}})
     finally:
         torch.backends.cudnn.deterministic = False
-    print(f"fused phase on {card}; granite-3-2b stays on the host driver")
+    print(f"fused phase on {card}")
     print(json.dumps({"fused": results}, default=float))
-    return results
+    return results, host_records
 
 
 # ---------------------------------------------------------------------------
@@ -2401,7 +2622,8 @@ class PathWatch:
                                  f"the watch did not see: {self.calls}")
 
 
-def check_path_shapes(torch, watch, wavg_ops, robust_ops):
+def check_path_shapes(torch, watch, wavg_ops, robust_ops,
+                      path="experiments"):
     """Every wrapper of the watched path against its plain version, on
     fresh random inputs at each shape the path gave it (rtol RTOL, atol
     ATOL); returns the largest error per kernel."""
@@ -2427,7 +2649,7 @@ def check_path_shapes(torch, watch, wavg_ops, robust_ops):
         err["trimmed_wavg"] = max(err.get("trimmed_wavg", 0.0),
                                   float((out - ref).abs().max()))
     torch.cuda.synchronize()
-    print(f"the experiments path's shapes, each kernel against its plain "
+    print(f"the {path} path's shapes, each kernel against its plain "
           f"version (rtol {RTOL}, atol {ATOL}): wavg (K, N) "
           f"{sorted(watch.shapes['wavg'])}, trimmed_wavg (K, N, trim) "
           f"{sorted(watch.shapes['trimmed_wavg'])}; max abs err {err}")
@@ -2443,7 +2665,9 @@ def run_experiments(torch, wavg_ops, robust_ops, directory):
     Every curve has its rounds, a finite last FID and a growing
     wallclock; the robustness sweep passes its identity gate; the
     quickstart's checkpoint holds its trained state bit for bit. Then
-    each kernel against its plain version at the path's own shapes."""
+    each kernel against its plain version at the path's own shapes.
+    fig5 runs under cuDNN's deterministic algorithms: its curves, also
+    returned, are the stacked twins of 8d's mesh settings."""
     os.environ.update(REPRO_BENCH_FULL="1", REPRO_BENCH_ROUNDS="2",
                       REPRO_BENCH_EVAL_EVERY="2")
     import re
@@ -2500,13 +2724,20 @@ def run_experiments(torch, wavg_ops, robust_ops, directory):
         return [common.Curve(**cell["curve"]) for sweep in sweeps.values()
                 for cell in sweep.values()]
 
+    def fig5_run():
+        torch.backends.cudnn.deterministic = True
+        try:
+            return fig5_fedgan.main(out_dir)
+        finally:
+            torch.backends.cudnn.deterministic = False
+
     mains = {"quickstart": quickstart_run,
              "fig3_schedules": lambda: fig3_schedules.main(out_dir),
              "fig4_devices": lambda: fig4_devices.main(out_dir),
-             "fig5_fedgan": lambda: fig5_fedgan.main(out_dir),
+             "fig5_fedgan": fig5_run,
              "fig6_scheduling": lambda: fig6_scheduling.main(out_dir),
              "fig_robust --smoke": robust_run}
-    results = {}
+    results, fig5 = {}, None
     with PathWatch(torch, {
             "wavg": (wavg_ops, "weighted_average",
                      lambda a, kw: tuple(a[0].shape)),
@@ -2521,6 +2752,8 @@ def run_experiments(torch, wavg_ops, robust_ops, directory):
             curves = mains[name]()
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
+            if name == "fig5_fedgan":
+                fig5 = curves
             now, calls = watch.launches(), watch.counts()
             got = tuple(now[k] - before[k] for k in ("wavg", "trimmed_wavg"))
             if got != want:
@@ -2561,11 +2794,300 @@ def run_experiments(torch, wavg_ops, robust_ops, directory):
           f"{watch.calls}, of them recorded in a capture {watch.captured}, "
           f"replayed {watch.replayed}")
     errors = check_path_shapes(torch, watch, wavg_ops, robust_ops)
-    return results, launches, errors
+    return results, launches, errors, fig5
 
 
-def train_experiments(torch, shards, card, wavg_ops, robust_ops):
-    """Phase 8 on `card`; returns the experiments path's launches."""
+# ---------------------------------------------------------------------------
+# 8d. The mesh experiments: the figures and mamba2-130m on gloo ranks
+# ---------------------------------------------------------------------------
+
+def counted_call(fn, directory, device):
+    """`fn(device)` on a mesh rank, watched from the script: the kernels'
+    launch counts set to 0 before it and written after it into
+    `directory` (a file a rank and call), with the (K, N) shapes the wavg
+    wrapper was given; returns fn's result."""
+    import torch.distributed as dist
+    from repro_torch.kernels.ring_wavg import ops as ring_ops
+    from repro_torch.kernels.robust_avg import ops as robust_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.wavg import ops as wavg_ops
+    mods = {"wavg": wavg_ops, "trimmed_wavg": robust_ops,
+            "ssd_scan": ssd_ops, "ring_accum": ring_ops}
+    shapes = set()
+    average = wavg_ops.weighted_average
+
+    def recorded(x, w):
+        shapes.add(tuple(x.shape))
+        return average(x, w)
+
+    for mod in mods.values():
+        mod.launches = 0
+    wavg_ops.weighted_average = recorded
+    try:
+        result = fn(device)
+    finally:
+        wavg_ops.weighted_average = average
+    name = f"{dist.get_rank()}_{time.time_ns()}.json"
+    with open(os.path.join(directory, name), "w") as f:
+        json.dump({"launches": {k: m.launches for k, m in mods.items()},
+                   "wavg_shapes": sorted(shapes)}, f)
+    return result
+
+
+class MeshWatch:
+    """The kernels that ran on the ranks of the experiments' mesh runs,
+    watched from outside the program: `experiments.common.run_on_mesh`
+    runs each fn through `counted_call`; `take()` sums every rank's
+    counts since the last take and keeps the wavg shapes."""
+
+    def __init__(self, directory):
+        self.directory = directory
+        self.shapes = {"wavg": set(), "trimmed_wavg": set()}
+
+    def take(self):
+        total = {}
+        for name in os.listdir(self.directory):
+            path = os.path.join(self.directory, name)
+            with open(path) as f:
+                seen = json.load(f)
+            os.remove(path)
+            self.shapes["wavg"].update(map(tuple, seen["wavg_shapes"]))
+            for kernel, n in seen["launches"].items():
+                total[kernel] = total.get(kernel, 0) + n
+        return total
+
+    def __enter__(self):
+        from repro_torch.experiments import common
+        run_on_mesh = self._run_on_mesh = common.run_on_mesh
+
+        def watched(fns, k, device=None, timeout_s=900.0):
+            return run_on_mesh([functools.partial(counted_call, fn,
+                                                  self.directory)
+                                for fn in fns], k, device, timeout_s)
+        common.run_on_mesh = watched
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.experiments import common
+        common.run_on_mesh = self._run_on_mesh
+
+
+def records_mismatch(mesh_recs, stacked_recs):
+    """What differs between two runs' records: masks, weights, wallclock
+    or cumulative clock not bit for bit, a metric beyond 1e-5 relative
+    (1e-6 absolute), a FID beyond 1e-4 relative; None if nothing does."""
+    import numpy as np
+    if len(mesh_recs) != len(stacked_recs):
+        return f"{len(mesh_recs)} rounds, stacked {len(stacked_recs)}"
+    for m, s in zip(mesh_recs, stacked_recs):
+        if not (np.array_equal(m.mask, s.mask)
+                and np.array_equal(m.weights, s.weights)
+                and (m.wallclock_s, m.cumulative_s) == (s.wallclock_s,
+                                                        s.cumulative_s)):
+            return (f"round {s.round}: mask {m.mask} weights {m.weights} "
+                    f"wallclock {m.wallclock_s}, stacked {s.mask} "
+                    f"{s.weights} {s.wallclock_s}")
+        if m.metrics.keys() != s.metrics.keys() or any(
+                abs(m.metrics[k] - v) > 1e-6 + 1e-5 * abs(v)
+                for k, v in s.metrics.items()):
+            return f"round {s.round}: metrics {m.metrics}, {s.metrics}"
+        if (m.fid is None) != (s.fid is None) or (
+                s.fid is not None and abs(m.fid - s.fid) > 1e-4 * s.fid):
+            return f"round {s.round}: FID {m.fid}, stacked {s.fid}"
+    return None
+
+
+def _max_rel(mesh_recs, stacked_recs):
+    """The largest relative differences of the metrics and FIDs."""
+    metric = max((abs(m.metrics[k] - v) / max(abs(v), 1e-30)
+                  for m, s in zip(mesh_recs, stacked_recs)
+                  for k, v in s.metrics.items()), default=0.0)
+    fid = max((abs(m.fid - s.fid) / s.fid for m, s in
+               zip(mesh_recs, stacked_recs) if s.fid is not None),
+              default=0.0)
+    return metric, fid
+
+
+def _mamba_mesh_run(shards_path, device):
+    """mamba2-130m at full width on this rank: `Trainer(layout="mesh")`,
+    MAMBA_MESH's host-driver rounds on this rank's shard; returns (the
+    records, the seconds of each round, the state finite?)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.tree import tree_leaves
+    torch.backends.cudnn.deterministic = True      # as the parent's 8d
+    trainer = mamba_trainer(np.load(shards_path, mmap_mode="c"), device,
+                            "mesh")
+    secs = []
+    for _ in range(MAMBA_MESH["rounds"]):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        trainer.run(1)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    finite = all(bool(torch.isfinite(x).all())
+                 for x in tree_leaves(trainer.state)
+                 if x.is_floating_point())
+    return trainer.history, secs, finite
+
+
+def mamba_mesh_rank(shards_path, directory, rank, world_size, device):
+    """`_mamba_mesh_run` on one rank, watched by `counted_call`."""
+    _rank_torch()
+    return counted_call(functools.partial(_mamba_mesh_run, shards_path),
+                        directory, device)
+
+
+# mamba2-130m on the mesh: K=4 ranks on this card, the host driver,
+# phase 7's settings (serial, round_robin at 0.5, fading off), the flat
+# all-gather (one wavg launch a rank a round). Each group recomputed in
+# the backward (remat, the same math): without it a rank holds 19 GiB,
+# 4 ranks more than the card.
+MAMBA_MESH = dict(rounds=2, scheduler="round_robin", scheduling_ratio=0.5,
+                  schedule="serial", remat=True)
+
+
+def mamba_trainer(shards, device, layout):
+    from repro_torch.configs import ProtocolConfig
+    from repro_torch.core import Trainer
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.models import gan
+    from repro_torch.models.specs import make_backbone_spec
+    bb = MAMBA
+    cfg = backbone_config(bb)
+    pcfg = ProtocolConfig(
+        n_devices=bb["k"], n_d=bb["n_d"], n_g=bb["n_g"],
+        sample_size=bb["m"], server_sample_size=bb["m"], lr_d=1e-3,
+        lr_g=1e-3, optimizer="adam", schedule=MAMBA_MESH["schedule"],
+        scheduler=MAMBA_MESH["scheduler"],
+        scheduling_ratio=MAMBA_MESH["scheduling_ratio"])
+    return Trainer(make_backbone_spec(cfg, bb["seq"],
+                                      remat=MAMBA_MESH["remat"],
+                                      gen_loss_variant="nonsaturating"),
+                   pcfg, lambda g: gan.gan_init(g, cfg), shards, seed=0,
+                   driver="host", layout=layout, device=device,
+                   channel_cfg=ChannelConfig(n_devices=bb["k"],
+                                             fading=False))
+
+
+def train_mesh_experiments(torch, directory, mamba_shards, fig5_twin,
+                           mamba_twin):
+    """8d, the "mesh_experiments" path, under cuDNN's deterministic
+    algorithms (the ranks take the setting; with cuDNN free to choose,
+    two processes' convolutions differ in the last bits and a 16-bit
+    rounding flips): fig5_fedgan --layout mesh --smoke at the paper's
+    full width (K=10 gloo ranks on this card, 2 rounds, FID at round 2)
+    against `fig5_twin`, 8c's stacked curves of the same settings;
+    mamba2-130m at full width on K=4 ranks, 2 rounds, against
+    `mamba_twin`, phase 7's host-driver records of the same settings.
+    Masks, weights and the wallclock bit for bit, metrics and FIDs as
+    `records_mismatch`; each rank's launches summed (wavg once a rank a
+    round; 432 ssd_scan launches a mamba2 rank a round: one device's
+    n_d (L + 2 L) + n_g 2 L sublayer forwards, L = 24, the 2 L and 2 L
+    once more in their backwards). Returns the path's records, its
+    launches and the wavg shapes the ranks gave it."""
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _mesh_experiments(torch, directory, mamba_shards, fig5_twin,
+                                 mamba_twin)
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def _mesh_experiments(torch, directory, mamba_shards, fig5_twin,
+                      mamba_twin):
+    import tempfile
+    import numpy as np
+    from repro_torch.experiments import fig5_fedgan
+    from repro_torch.launch import mesh
+    out, launches = {}, {}
+    counts = tempfile.mkdtemp(dir=directory)
+    name, want_wavg = "fig5_fedgan --layout mesh --smoke", 10 * 2 * 2
+    twin = {c.label: c for c in fig5_twin}
+    with MeshWatch(counts) as watch:              # the path starts here
+        t0 = time.perf_counter()
+        got = fig5_fedgan.main(os.path.join(directory, "mesh"),
+                               layout="mesh", smoke=True)
+        secs = time.perf_counter() - t0
+        seen = watch.take()
+        if seen.get("wavg") != want_wavg or any(
+                seen.get(k) for k in ("trimmed_wavg", "ssd_scan",
+                                      "ring_accum")):
+            raise AssertionError(f"{name}: launches {seen}, expected "
+                                 f"{want_wavg} wavg")
+        pairs = [(c.label, c.records, twin[c.label].records) for c in got]
+        for label, mesh_recs, stacked_recs in pairs:
+            wrong = records_mismatch(mesh_recs, stacked_recs)
+            if wrong:
+                raise AssertionError(f"{label}: the mesh run differs from "
+                                     f"the stacked run: {wrong}")
+        rel = [_max_rel(m, s) for _, m, s in pairs]
+        out[name] = {"seconds": secs, "wavg": seen["wavg"],
+                     "max_rel_metric": max(r[0] for r in rel),
+                     "max_rel_fid": max(r[1] for r in rel)}
+        for k, n in seen.items():
+            launches[k] = launches.get(k, 0) + n
+        print(f"mesh experiment {name}: {secs:.2f} s with 10 ranks' "
+              f"start-up; every setting's masks, weights and wallclock "
+              f"bitwise 8c's stacked run's, metrics within "
+              f"{out[name]['max_rel_metric']:.2e} and FIDs within "
+              f"{out[name]['max_rel_fid']:.2e} relative; {seen['wavg']}"
+              f" wavg launches over the ranks")
+
+        path = os.path.join(directory, "mamba_shards.npy")
+        np.save(path, mamba_shards)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        per_rank = mesh.spawn(functools.partial(mamba_mesh_rank, path,
+                                                counts),
+                              MAMBA["k"], backend="gloo", timeout_s=600)
+        secs = time.perf_counter() - t0
+        seen = watch.take()                        # ... and ends here
+    rounds, layers = MAMBA_MESH["rounds"], MAMBA["layers"]
+    # a rank's sublayer forwards a round: n_d (G without a gradient, D on
+    # real and fake) + n_g (G and D), each differentiated pass once more
+    # in its backward (remat)
+    remat = 2 if MAMBA_MESH["remat"] else 1
+    want = {"wavg": MAMBA["k"] * rounds, "trimmed_wavg": 0,
+            "ssd_scan": MAMBA["k"] * rounds * (
+                MAMBA["n_d"] * (layers + 2 * layers * remat)
+                + MAMBA["n_g"] * 2 * layers * remat),
+            "ring_accum": 0}
+    if seen != want:
+        raise AssertionError(f"mamba2-130m on the mesh: launches {seen}, "
+                             f"expected {want}")
+    for k, n in seen.items():
+        launches[k] = launches.get(k, 0) + n
+    stacked_recs = list(mamba_twin[:rounds])
+    for r, (recs, _, finite) in enumerate(per_rank):
+        wrong = records_mismatch(recs, stacked_recs)
+        if wrong or not finite:
+            raise AssertionError(f"mamba2-130m mesh rank {r}: finite "
+                                 f"{finite}; {wrong}")
+    if all(rec.mask.all() for rec in stacked_recs):
+        raise AssertionError("mamba2-130m on the mesh: round_robin at 0.5 "
+                             "scheduled every device")
+    metric_rel, _ = _max_rel(per_rank[0][0], stacked_recs)
+    round_s = [max(rank[1][t] for rank in per_rank) for t in range(rounds)]
+    out["mamba2-130m mesh"] = {"seconds": secs, "round_s": round_s,
+                               "max_rel_metric": metric_rel, **seen}
+    print(f"mamba2-130m on the mesh (K={MAMBA['k']} gloo ranks on this card, "
+          f"host driver, {rounds} rounds): {secs:.2f} s with start-up, "
+          f"rounds {[round(x, 3) for x in round_s]} s (slowest rank); "
+          f"masks, weights and wallclock bitwise phase 7's host-driver "
+          f"rounds on every rank, metrics within "
+          f"{metric_rel:.2e} relative; {seen['wavg']} wavg and "
+          f"{seen['ssd_scan']} ssd_scan launches over the ranks")
+    return out, launches, watch.shapes
+
+
+def train_experiments(torch, shards, card, wavg_ops, robust_ops,
+                      mamba_shards, mamba_records):
+    """Phase 8 on `card`; `mamba_records` are phase 7's host-driver
+    rounds of mamba2-130m, the stacked twin of its mesh run. Returns the
+    "experiments" and "mesh_experiments" paths' launches."""
     import tempfile
     base = os.path.join(ROOT, "results", "torch")
     os.makedirs(base, exist_ok=True)
@@ -2575,16 +3097,90 @@ def train_experiments(torch, shards, card, wavg_ops, robust_ops):
         stamp("experiments: resume")
         checks = check_centralized_and_microbatched(torch)
         stamp("experiments: centralized and microbatched rounds")
-        results, launches, errors = run_experiments(torch, wavg_ops,
-                                                    robust_ops, directory)
+        results, launches, errors, fig5 = run_experiments(
+            torch, wavg_ops, robust_ops, directory)
+        stamp("experiments: quickstart and figures")
+        mesh_runs, mesh_launches, shapes = train_mesh_experiments(
+            torch, directory, mamba_shards, fig5, mamba_records)
+        errors["mesh"] = check_path_shapes(
+            torch, types.SimpleNamespace(shapes=shapes), wavg_ops,
+            robust_ops, path="mesh_experiments")
     finally:
         shutil.rmtree(directory, ignore_errors=True)
     print(f"experiments phase on {card}")
     print(json.dumps({"experiments": {"resume": resume, "checks": checks,
                                       "runs": results,
+                                      "mesh_runs": mesh_runs,
                                       "path_shapes_max_abs_err": errors}},
                      default=float))
-    return launches
+    return {"experiments": launches, "mesh_experiments": mesh_launches}
+
+
+# ---------------------------------------------------------------------------
+# --allocator-ab: host-driver rounds under the allocator's two segment kinds
+# ---------------------------------------------------------------------------
+
+ALLOC_CONFS = ("", "expandable_segments:True", "expandable_segments:True",
+               "")
+
+
+def host_rounds(torch):
+    """`--host-rounds`: seconds a host-driver round in this process, under
+    the PYTORCH_CUDA_ALLOC_CONF it was started with: the full DCGAN
+    (K=10, serial, every device scheduled, 4 rounds) and mamba2-130m at
+    phase 5's full width (3 serial rounds); one JSON line."""
+    from repro_torch.configs import DCGANConfig, ProtocolConfig
+    from repro_torch.core import Trainer
+    from repro_torch.data import make_image_dataset, partition
+    from repro_torch.models import dcgan, gan
+    from repro_torch.models.specs import make_backbone_spec, make_dcgan_spec
+    cfg = DCGANConfig()
+    imgs, _ = make_image_dataset("celeba", 10 * 512, seed=0)
+    trainer = Trainer(
+        make_dcgan_spec(cfg, gen_loss_variant="nonsaturating"),
+        ProtocolConfig(n_devices=10, n_d=5, n_g=5, sample_size=128,
+                       server_sample_size=128, optimizer="adam"),
+        lambda g: dcgan.gan_init(g, cfg), partition(imgs, 10), seed=0,
+        driver="host")
+    out = {"dcgan_s": [_timed_round(torch, trainer)[1] for _ in range(4)]}
+    del trainer, imgs
+    bb = MAMBA
+    cfg = backbone_config(bb)
+    _, shards = token_shards(bb, cfg)
+    trainer = Trainer(
+        make_backbone_spec(cfg, bb["seq"], remat=False,
+                           gen_loss_variant="nonsaturating"),
+        ProtocolConfig(n_devices=bb["k"], n_d=bb["n_d"], n_g=bb["n_g"],
+                       sample_size=bb["m"], server_sample_size=bb["m"],
+                       lr_d=1e-3, lr_g=1e-3, optimizer="adam"),
+        lambda g: gan.gan_init(g, cfg), shards, seed=0, driver="host")
+    out["mamba2_s"] = [_timed_round(torch, trainer)[1] for _ in range(3)]
+    print(json.dumps({"alloc_conf": os.environ.get(
+        "PYTORCH_CUDA_ALLOC_CONF", ""), **out}))
+
+
+def allocator_ab(card):
+    """`--allocator-ab`: `--host-rounds` in one process for each of
+    ALLOC_CONFS in turn (fixed segments, expandable, expandable, fixed),
+    the kernels already built; their seconds a round beside `card`."""
+    runs = []
+    for conf in ALLOC_CONFS:
+        env = {k: v for k, v in os.environ.items()
+               if k != "PYTORCH_CUDA_ALLOC_CONF"}
+        if conf:
+            env["PYTORCH_CUDA_ALLOC_CONF"] = conf
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--host-rounds"],
+            env=env, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"--host-rounds under {conf!r} exited "
+                               f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        print(f"host rounds, PYTORCH_CUDA_ALLOC_CONF={conf!r}: DCGAN "
+              f"{[round(x, 4) for x in runs[-1]['dcgan_s']]} s, mamba2-130m "
+              f"{[round(x, 4) for x in runs[-1]['mamba2_s']]} s")
+    print(f"allocator A/B on {card}")
+    print(json.dumps({"allocator_ab": runs}))
 
 
 T_START = time.perf_counter()
@@ -2602,6 +3198,13 @@ def main() -> int:
         help="after phase 3, time the flash_attn and trimmed_wavg kernels "
              "of the checkout in DIR (e.g. a `git archive` of the parent "
              "commit) beside this one's, and stop")
+    parser.add_argument(
+        "--allocator-ab", action="store_true",
+        help="after phase 2, time host-driver rounds of the DCGAN and "
+             "mamba2-130m with the caching allocator's expandable segments "
+             "off and on, each in its own process, and stop")
+    parser.add_argument("--host-rounds", action="store_true",
+                        help=argparse.SUPPRESS)
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -2616,6 +3219,11 @@ def main() -> int:
     from repro_torch.kernels.ssd_scan import ref as ssd_ref
     from repro_torch.kernels.wavg import ops
     from repro_torch.nn import ssm
+    if args.host_rounds:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        host_rounds(torch)
+        return 0
 
     # 1. device
     card = subprocess.run(
@@ -2637,6 +3245,10 @@ def main() -> int:
     print(f"built wavg, trimmed_wavg, ssd_scan, flash_attn and ring_accum in "
           f"{time.perf_counter() - t0:.2f} s")
     stamp("build")
+    if args.allocator_ab:
+        allocator_ab(card)
+        stamp("allocator A/B")
+        return 0
 
     # 3. kernels
     wavg = check_wavg(torch, ops)
@@ -2664,10 +3276,10 @@ def main() -> int:
     stamp("check")
 
     # 5. train: the protocol's path, the hostile-worker path, the mesh
-    # path, then the two backbone-GAN paths; 6. one profiled round after
-    # each model's paths (the DCGAN trainer is freed before the mesh
-    # path, the mamba2-130m trainer before granite-3-2b's). This process
-    # never runs the ring: its ring_accum count stays 0.
+    # path, then the backbone-GAN paths; 6. one profiled round after the
+    # DCGAN's, mamba2-130m's and granite-3-2b's paths (each trainer is
+    # freed before the next path). This process never runs the ring: its
+    # ring_accum count stays 0.
     flash_ops.launches = ring_ops.launches = 0
     protocol_launches, trainer, setup, first_round = train(torch, ops,
                                                            robust_ops)
@@ -2685,8 +3297,9 @@ def main() -> int:
           f"child processes alive; host load average "
           f"{os.getloadavg()[0]:.2f} (1 min), {os.cpu_count()} cores")
     stamp("train: DCGAN mesh path")
-    mamba, backbone_trainer = train_backbone(torch, ops, ssd_ops,
-                                             "ssd_scan", MAMBA)
+    tokens = {}           # each backbone path's token shards, for phase 7
+    mamba, backbone_trainer, tokens["mamba2"] = train_backbone(
+        torch, ops, ssd_ops, "ssd_scan", MAMBA)
     stamp("train: mamba2-130m backbone path")
     profile_round(torch, backbone_trainer, "mamba2-130m backbone-GAN")
     del backbone_trainer
@@ -2696,45 +3309,60 @@ def main() -> int:
         raise AssertionError("flash_attn launched on the DCGAN or mamba2 "
                              "paths")
     ssd_before = ssd_ops.launches
-    granite, backbone_trainer = train_backbone(torch, ops, flash_ops,
-                                               "flash_attn", GRANITE)
+    granite, backbone_trainer, tokens["granite"] = train_backbone(
+        torch, ops, flash_ops, "flash_attn", GRANITE)
     stamp("train: granite-3-2b backbone path")
-    if robust_ops.launches != hostile["trimmed_wavg"]:
-        raise AssertionError("trimmed_wavg launched on a backbone path")
-    if ssd_ops.launches != ssd_before:
-        raise AssertionError("ssd_scan launched on the granite-3-2b path")
-    if ring_ops.launches != 0:
-        raise AssertionError("ring_accum launched outside the mesh path")
-    by_path = {"wavg": {"protocol": protocol_launches,
-                        "hostile": hostile["wavg"], "mesh": mesh["wavg"],
-                        "mamba2": mamba["wavg"], "granite": granite["wavg"]},
-               "trimmed_wavg": {"hostile": hostile["trimmed_wavg"],
-                                "mesh": mesh["trimmed_wavg"]},
-               "ssd_scan": {"mamba2": mamba["ssd_scan"]},
-               "flash_attn": {"granite": granite["flash_attn"]},
-               "ring_accum": {"mesh": mesh["ring_accum"]}}
-    for entry in (wavg, trimmed, ssd, flash, ring):
-        paths = {"protocol": 0, "hostile": 0, "mesh": 0, "mamba2": 0,
-                 "granite": 0, **by_path[entry["name"]]}
-        entry["launches"] = sum(paths.values())
-        entry["launches_by_path"] = paths
     profile_round(torch, backbone_trainer, "granite-3-2b backbone-GAN")
     del backbone_trainer
     torch.cuda.empty_cache()
     stamp("profile: granite-3-2b")
+    minitron, backbone_trainer, tokens["minitron"] = train_backbone(
+        torch, ops, flash_ops, "flash_attn", MINITRON)
+    del backbone_trainer
+    torch.cuda.empty_cache()
+    stamp("train: minitron-4b backbone path")
+    gemma3 = check_gemma3(torch, flash_ops)
+    stamp("train: gemma3-12b forward and backward")
+    if robust_ops.launches != hostile["trimmed_wavg"]:
+        raise AssertionError("trimmed_wavg launched on a backbone path")
+    if ssd_ops.launches != ssd_before:
+        raise AssertionError("ssd_scan launched on a dense path")
+    if ring_ops.launches != 0:
+        raise AssertionError("ring_accum launched outside the mesh path")
+    by_path = {"wavg": {"protocol": protocol_launches,
+                        "hostile": hostile["wavg"], "mesh": mesh["wavg"],
+                        "mamba2": mamba["wavg"], "granite": granite["wavg"],
+                        "minitron": minitron["wavg"]},
+               "trimmed_wavg": {"hostile": hostile["trimmed_wavg"],
+                                "mesh": mesh["trimmed_wavg"]},
+               "ssd_scan": {"mamba2": mamba["ssd_scan"]},
+               "flash_attn": {"granite": granite["flash_attn"],
+                              "minitron": minitron["flash_attn"],
+                              "gemma3": gemma3["flash_attn"]},
+               "ring_accum": {"mesh": mesh["ring_accum"]}}
+    for entry in (wavg, trimmed, ssd, flash, ring):
+        paths = {"protocol": 0, "hostile": 0, "mesh": 0, "mamba2": 0,
+                 "granite": 0, "minitron": 0, "gemma3": 0,
+                 **by_path[entry["name"]]}
+        entry["launches"] = sum(paths.values())
+        entry["launches_by_path"] = paths
 
-    # 7. fused: the fused driver against the host driver (granite-3-2b
-    # stays on the host driver)
-    train_fused(torch, shards, card)
+    # 7. fused: the fused driver against the host driver
+    _, host_records = train_fused(torch, shards, card, tokens)
     stamp("fused")
 
-    # 8. experiments: resume, centralized and microbatched rounds, then
-    # the quickstart twin and the figures (the "experiments" path)
-    experiments = train_experiments(torch, shards, card, ops, robust_ops)
+    # 8. experiments: resume, centralized and microbatched rounds, the
+    # quickstart twin and the figures (the "experiments" path), then the
+    # mesh figures and mamba2-130m on the mesh (the "mesh_experiments"
+    # path, launches summed over the ranks)
+    experiments = train_experiments(torch, shards, card, ops, robust_ops,
+                                    tokens["mamba2"],
+                                    host_records["mamba2-130m"])
     for entry in (wavg, trimmed, ssd, flash, ring):
-        n = experiments.get(entry["name"], 0)
-        entry["launches_by_path"]["experiments"] = n
-        entry["launches"] += n
+        for path in ("experiments", "mesh_experiments"):
+            n = experiments[path].get(entry["name"], 0)
+            entry["launches_by_path"][path] = n
+            entry["launches"] += n
     stamp("experiments")
 
     print(json.dumps({"kernels": [wavg, trimmed, ssd, flash, ring]}))

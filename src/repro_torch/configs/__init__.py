@@ -8,12 +8,15 @@ from repro_torch.configs.base import (ArchConfig, MoEConfig, ProtocolConfig,
                                       SSMConfig)
 from repro_torch.configs.dcgan import DCGANConfig
 
-# Canonical (dashed) ids of the ported architectures, mapped to modules.
-# The JAX package registers seven more (gemma3, minitron and the MoE,
-# hybrid, encoder-decoder and vision families); they wait for ROADMAP A13.
+# Canonical (dashed) ids of the ported architectures, mapped to modules:
+# every dense and ssm config of the JAX package. It registers five more
+# (the MoE, hybrid, encoder-decoder and vision families); they wait for
+# ROADMAP A13.
 CANONICAL = {"mamba2-130m": "mamba2_130m",
              "granite-3-2b": "granite_3_2b",
-             "qwen3-1.7b": "qwen3_1_7b"}
+             "qwen3-1.7b": "qwen3_1_7b",
+             "gemma3-12b": "gemma3_12b",
+             "minitron-4b": "minitron_4b"}
 
 
 def get_arch_config(name: str):

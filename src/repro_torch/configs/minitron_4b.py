@@ -1,0 +1,20 @@
+"""minitron-4b [dense] — pruned Nemotron [arXiv:2407.14679].
+
+Copy of `repro.configs.minitron_4b`: 32L, d_model=3072, 24H (GQA kv=8),
+d_ff=9216, vocab=256000.
+"""
+from repro_torch.configs.base import ArchConfig
+
+
+def config() -> ArchConfig:
+    return ArchConfig(
+        name="minitron-4b",
+        family="dense",
+        n_layers=32,
+        d_model=3072,
+        n_heads=24,
+        n_kv_heads=8,
+        d_ff=9216,
+        vocab=256000,
+        source="arXiv:2407.14679 (Minitron)",
+    )

@@ -14,7 +14,8 @@ each round. With `capture=True` (the stacked layout on CUDA):
      capture), and proves that the body never synchronises with the
      host;
   2. the body is then captured once with `torch.cuda.graph` on the same
-     stream (capturing runs nothing);
+     stream (capturing runs nothing), with the caching allocator's
+     expandable segments on for the capture alone (`_expandable_segments`);
   3. every later round replays the graph: no Python between the kernels.
 
 If the capture or a replay fails, the error propagates: there is no
@@ -29,12 +30,45 @@ buffer; a chunk ends with one synchronise and one copy to the host.
 from __future__ import annotations
 
 import contextlib
+import os
 from typing import Callable
 
 import numpy as np
 import torch
 
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+
+def _set_allocator(settings: str):
+    """Set options of the caching allocator (PYTORCH_CUDA_ALLOC_CONF's
+    syntax) at run time, through whichever call this torch has."""
+    setter = getattr(torch._C, "_accelerator_setAllocatorSettings", None)
+    (setter or torch.cuda.memory._set_allocator_settings)(settings)
+
+
+@contextlib.contextmanager
+def _expandable_segments():
+    """The caching allocator's expandable segments on inside the block.
+    A capture allocates in the graph's private pool, which cannot hand a
+    free segment back to the device until the capture ends; with fixed
+    segments a round of multi-GiB leaves (granite-3-2b's) fragments that
+    pool past the card (55 GiB of segments around 24 GiB of live
+    tensors). Grown in place, the pool stays near the round's live
+    peak. The setting only shapes the segments made inside the block:
+    eager rounds and everything else keep fixed segments, unless the
+    environment (PYTORCH_CUDA_ALLOC_CONF or PYTORCH_ALLOC_CONF) turns
+    expandable segments on for the whole process, which is then left
+    as it is."""
+    conf = ",".join(os.environ.get(name, "") for name in (
+        "PYTORCH_CUDA_ALLOC_CONF", "PYTORCH_ALLOC_CONF"))
+    if "expandable_segments:true" in conf.replace(" ", "").lower():
+        yield
+        return
+    _set_allocator("expandable_segments:True")
+    try:
+        yield
+    finally:
+        _set_allocator("expandable_segments:False")
 
 
 @contextlib.contextmanager
@@ -148,7 +182,8 @@ class RoundGraph:
         main.wait_stream(self._stream)
         row.record_stream(main)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=self._stream):
+        with _expandable_segments(), torch.cuda.graph(graph,
+                                                      stream=self._stream):
             self._row = self._round()
         self._graph = graph
         return row

@@ -5,23 +5,24 @@ the device compute); proposed-parallel ~ FedGAN. Port of
 
 Both algorithms run the fused driver with the paper's 16-bit quantized
 uplink; the trailing rows ablate the uplink bit width, which shrinks
-simulated upload time for both algorithms. --smoke shrinks to one
-proposed + one FedGAN setting (round count still via
-REPRO_BENCH_ROUNDS). --layout mesh raises: the port's mesh figure runs
-wait for ROADMAP A item 6.
+simulated upload time for both algorithms. --layout selects the
+execution layout for every setting: "mesh" runs each on --devices gloo
+ranks, one a worker (`common.run_on_mesh`; on CUDA they share the
+card). --smoke shrinks to one proposed + one FedGAN setting (round
+count still via REPRO_BENCH_ROUNDS).
 
     python -m repro_torch.experiments.fig5_fedgan [--smoke] [--device cpu]
+    python -m repro_torch.experiments.fig5_fedgan --layout mesh --smoke
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
-import time
 
 from repro_torch.experiments.common import (OUT_DIR, device_arg,
                                             emit_csv_row, last_fid,
-                                            run_experiment)
+                                            run_experiments)
 
 SETTINGS = [("proposed-serial", "proposed", "serial", 16),
             ("proposed-parallel", "proposed", "parallel", 16),
@@ -32,16 +33,18 @@ SETTINGS = [("proposed-serial", "proposed", "serial", 16),
 
 def main(out_dir=OUT_DIR, layout="stacked", k=10, smoke=False, device=None):
     os.makedirs(out_dir, exist_ok=True)
-    curves = []
     settings = SETTINGS
     if smoke:   # one setting per algorithm
         settings = [SETTINGS[0], SETTINGS[2]]
-    for label, algorithm, schedule, bits in settings:
-        t0 = time.time()
-        c = run_experiment(f"fig5/{label}", dataset="celeba",
-                           algorithm=algorithm, schedule=schedule,
-                           bits=bits, layout=layout, k=k, device=device)
-        dt = (time.time() - t0) * 1e6 / max(len(c.rounds), 1)
+    # on the mesh layout every setting runs on the same K ranks
+    runs = run_experiments(
+        [(f"fig5/{label}", dict(dataset="celeba", algorithm=algorithm,
+                                schedule=schedule, bits=bits, k=k))
+         for label, algorithm, schedule, bits in settings],
+        layout=layout, device=device)
+    curves = []
+    for (label, *_), (c, secs) in zip(settings, runs):
+        dt = secs * 1e6 / max(len(c.rounds), 1)
         curves.append(c)
         emit_csv_row(f"fig5_{label}_{layout}", dt,
                      f"final_fid={last_fid(c):.2f};"
@@ -58,7 +61,7 @@ if __name__ == "__main__":
     ap.add_argument("--layout", choices=["stacked", "mesh"],
                     default="stacked",
                     help="execution layout for every setting (mesh: "
-                         "ROADMAP A item 6, not ported yet)")
+                         "one gloo rank a device)")
     ap.add_argument("--devices", type=int, default=10,
                     help="fleet size K (the paper's 10)")
     ap.add_argument("--smoke", action="store_true",

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import torch
 
 from repro.configs import get_arch_config as jget_arch_config
+from repro.configs import list_archs as jlist_archs
 from repro.core import protocol as jprotocol
 from repro.core.engine import Trainer as JaxTrainer
 from repro.data import synthetic as jsynthetic
@@ -80,7 +81,12 @@ def test_arch_configs_match_jax():
         assert dataclasses.asdict(port) == dataclasses.asdict(ref)
         assert port.group_pattern == ref.group_pattern
         assert port.n_groups_stack == ref.n_groups_stack
-    assert list_archs() == ["mamba2-130m", "granite-3-2b", "qwen3-1.7b"]
+    # every dense and ssm config of the JAX package, and no other
+    assert list_archs() == ["mamba2-130m", "granite-3-2b", "qwen3-1.7b",
+                            "gemma3-12b", "minitron-4b"]
+    assert set(list_archs()) == {name for name in jlist_archs()
+                                 if jget_arch_config(name).family
+                                 in ("dense", "ssm")}
     assert dataclasses.asdict(get_arch_config("dcgan")) == \
         dataclasses.asdict(jget_arch_config("dcgan"))
     with pytest.raises(KeyError, match="A13"):

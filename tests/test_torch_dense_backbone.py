@@ -1,15 +1,18 @@
 """Port parity: the backbone-GAN on the dense attention family
-(granite-3-2b, qwen3-1.7b) against the JAX package — configs, the
-full-width parameter trees, forwards, one protocol round and one round
-of the Trainer's host driver.
+(granite-3-2b, qwen3-1.7b, minitron-4b, gemma3-12b) against the JAX
+package — configs, the full-width parameter trees, forwards, protocol
+rounds and one round of the Trainer's host driver.
 
 The reduced configs (2 layers, d_model 256, 8 heads of 32, d_ff 512,
 vocab 512) run at seq_len 520, so that s * s passes the flash threshold
 and attention takes the flash path (the kernel wrapper's plain version
 and the port's FlashAttention-2 backward). Reduced granite has as many
 kv heads as heads; the `kv2` variant (2 kv heads, 4 query heads each)
-exercises grouped-query indexing. Both packages start from the same
-parameters (carried by `repro_torch.interop`) and consume the JAX draws.
+exercises grouped-query indexing. Reduced gemma3-12b is one 5:1 group
+of 6 layers (5 with a sliding window of 8 keys, 1 global), with qk-norm
+and RoPE base 1e6: at seq_len 520 the window masks most keys. Both
+packages start from the same parameters (carried by `repro_torch.interop`)
+and consume the JAX draws.
 
 Tolerances: forwards to 1e-4 relative and 1e-5 absolute; rounds as in
 tests/test_torch_backbone.py (one quantization step for the uploads,
@@ -47,7 +50,13 @@ SEQ, K, N_LOCAL = 520, 3, 6
 KEY = jax.random.PRNGKey(0)
 VARIANTS = {"granite": ("granite-3-2b", {}),
             "granite-kv2": ("granite-3-2b", {"n_kv_heads": 2}),
-            "qwen3": ("qwen3-1.7b", {})}
+            "qwen3": ("qwen3-1.7b", {}),
+            "minitron": ("minitron-4b", {}),
+            "gemma3": ("gemma3-12b", {})}
+# The depths and vocabularies `chip_smoke.py` cuts the full-width
+# configs to: one 5:1 group of gemma3-12b, 2 layers of minitron-4b, and
+# a 32,768-token vocabulary for both.
+CUT_VOCAB = {("minitron-4b", 2): 32_768, ("gemma3-12b", 6): 32_768}
 
 
 @functools.cache
@@ -68,9 +77,9 @@ def jax_params(variant):
                                           tcfg))
 
 
-def tokens(vocab, k=K, n=N_LOCAL, seed=0):
+def tokens(vocab, k=K, n=N_LOCAL, seed=0, seq=SEQ):
     return np.random.default_rng(seed).integers(
-        0, vocab, (k, n, SEQ)).astype(np.int32)
+        0, vocab, (k, n, seq)).astype(np.int32)
 
 
 def protocol_configs(**kw):
@@ -90,34 +99,53 @@ def compiled(fn, *args):
         compiler_options={"xla_backend_optimization_level": 0})
 
 
-def specs(variant):
+def specs(variant, seq=SEQ):
     jcfg, tcfg = cfgs(variant)
-    return (jspecs.make_backbone_spec(jcfg, SEQ, remat=False,
+    return (jspecs.make_backbone_spec(jcfg, seq, remat=False,
                                       gen_loss_variant="nonsaturating"),
-            tspecs.make_backbone_spec(tcfg, SEQ, remat=False,
+            tspecs.make_backbone_spec(tcfg, seq, remat=False,
                                       gen_loss_variant="nonsaturating"))
 
 
-@pytest.mark.parametrize("name", ["granite-3-2b", "qwen3-1.7b"])
+@pytest.mark.parametrize("name", ["granite-3-2b", "qwen3-1.7b",
+                                  "minitron-4b", "gemma3-12b"])
 def test_dense_configs_match_jax(name):
     for port, ref in ((get_arch_config(name), jget_arch_config(name)),
                       (get_arch_config(name).reduced(),
                        jget_arch_config(name).reduced())):
         assert dataclasses.asdict(port) == dataclasses.asdict(ref)
-        assert port.group_pattern == ref.group_pattern == ("attn",)
+        assert port.group_pattern == ref.group_pattern
         assert port.n_groups_stack == ref.n_groups_stack
+        for kind in port.group_pattern:
+            assert port.sublayer_window(kind) == ref.sublayer_window(kind)
+    if name == "gemma3-12b":
+        reduced = get_arch_config(name).reduced()
+        assert reduced.group_pattern == ("attn_local",) * 5 + (
+            "attn_global",)
+        assert [reduced.sublayer_window(k) for k in reduced.group_pattern
+                ] == [8] * 5 + [None]
+    else:
+        assert get_arch_config(name).group_pattern == ("attn",)
 
 
 @pytest.mark.parametrize("name,layers,sizes", [
     ("granite-3-2b", 40, (2_638_657_536, 2_537_728_000)),
     ("granite-3-2b", 4, (449_083_392, 348_153_856)),
-    ("qwen3-1.7b", 28, None)])
+    ("qwen3-1.7b", 28, None),
+    ("minitron-4b", 32, None),
+    ("minitron-4b", 2, (431_373_312, 330_319_872)),
+    ("gemma3-12b", 48, None),
+    ("gemma3-12b", 6, (1_611_747_072, 1_485_430_272))])
 def test_full_width_leaf_shapes_match_jax(name, layers, sizes):
     """The full-width backbone-GAN built on fake tensors (no storage)
     against `jax.eval_shape` of the JAX init: every leaf's shape, in leaf
-    order, group-stacked as in JAX."""
-    cfg = dataclasses.replace(get_arch_config(name), n_layers=layers)
-    jcfg = dataclasses.replace(jget_arch_config(name), n_layers=layers)
+    order, group-stacked as in JAX (and at the cut vocabulary of
+    CUT_VOCAB)."""
+    cut = {"n_layers": layers}
+    if (name, layers) in CUT_VOCAB:
+        cut["vocab"] = CUT_VOCAB[name, layers]
+    cfg = dataclasses.replace(get_arch_config(name), **cut)
+    jcfg = dataclasses.replace(jget_arch_config(name), **cut)
     jshapes = jax.eval_shape(lambda k: jgan.gan_init(k, jcfg), KEY)
     with FakeTensorMode():
         params = tgan.gan_init(torch.Generator().manual_seed(0), cfg)
@@ -134,7 +162,8 @@ def test_full_width_leaf_shapes_match_jax(name, layers, sizes):
         assert counts == sizes
     wq = params["disc"]["backbone"]["groups"]["sub0"]["attn"]["wq"]
     hd = cfg.resolved_head_dim
-    assert tuple(wq.shape) == (layers, cfg.d_model, cfg.n_heads * hd)
+    assert tuple(wq.shape) == (cfg.n_groups_stack, cfg.d_model,
+                               cfg.n_heads * hd)
 
 
 @pytest.mark.parametrize("variant", list(VARIANTS))
@@ -174,20 +203,18 @@ def test_generator_and_discriminator_match_jax(variant):
                                    rtol=1e-4, atol=1e-5)
 
 
-def test_gan_round_matches_jax():
+def _round_matches_jax(variant, seq=SEQ):
     """One parallel Adam round (one local and one server step of one
-    sample, 16-bit uplink, one device unscheduled) of the grouped-query variant from the
-    same state and draws. The SGD round is `test_trainer_matches_jax_
-    host_driver`'s."""
-    variant = "granite-kv2"
+    sample, 16-bit uplink, one device unscheduled) of `variant` at
+    seq_len `seq` from the same state and draws."""
     jcfg, _ = cfgs(variant)
-    jspec, tspec = specs(variant)
+    jspec, tspec = specs(variant, seq)
     jpcfg, tpcfg = protocol_configs(schedule="parallel", optimizer="adam")
     jstate = jprotocol.make_train_state(KEY, lambda k: jax_params(variant),
                                         jpcfg, K)
     tstate = interop.to_torch(jax.device_get(jstate), "cpu")
     n_params = tprotocol.count_params(tstate["disc"])
-    data = tokens(jcfg.vocab)
+    data = tokens(jcfg.vocab, seq=seq)
     w = np.asarray([1.0, 0.0, 1.0], np.float32)
     round_key = jax.random.fold_in(KEY, 0)
     args = (jstate, jnp.asarray(data), jnp.asarray(w), round_key)
@@ -205,6 +232,22 @@ def test_gan_round_matches_jax():
     for part, steps in (("disc", tpcfg.n_d), ("gen", tpcfg.n_g)):
         adam_close(tstate[part], jstate[part], atol=1e-5, lr=1e-3,
                    steps=steps)
+
+
+def test_gan_round_matches_jax():
+    """The round of `_round_matches_jax` on the grouped-query variant.
+    The SGD round is `test_trainer_matches_jax_host_driver`'s."""
+    _round_matches_jax("granite-kv2")
+
+
+def test_gemma3_round_matches_jax():
+    """The same round on reduced gemma3-12b: five windowed layers and a
+    global one, qk-norm before RoPE at base 1e6, at seq_len 64, where
+    the window of 8 masks most keys on the naive branch (the windowed
+    flash branch, forward and backward, is held to JAX by
+    `test_generator_and_discriminator_match_jax` and
+    tests/test_torch_attention.py; a round through it took 68 s here)."""
+    _round_matches_jax("gemma3", seq=64)
 
 
 def test_trainer_matches_jax_host_driver():

@@ -292,11 +292,16 @@ def test_fig4_centralized_setting_runs():
 
 
 def test_entry_points_refuse(tmp_path):
-    """The mesh figure runs wait for ROADMAP A item 6; the robustness
+    """The figures refuse a layout the port lacks, and the centralized
+    baseline on the mesh layout (as the JAX Trainer); the robustness
     sweep never writes the JAX package's BENCH_robust.json; without a
     card the figures need device='cpu'."""
-    with pytest.raises(ValueError, match="ROADMAP A item 6"):
-        fig5_fedgan.main(str(tmp_path), layout="mesh", device="cpu")
+    with pytest.raises(ValueError, match="layout='grid' is not ported"):
+        fig5_fedgan.main(str(tmp_path), layout="grid", device="cpu")
+    with pytest.raises(ValueError, match="not supported for algorithm "
+                                         "'centralized'"):
+        common.run_experiment("x", algorithm="centralized", layout="mesh",
+                              device="cpu")
     root_json = os.path.join(os.path.dirname(__file__), "..",
                              "BENCH_robust.json")
     with pytest.raises(SystemExit):

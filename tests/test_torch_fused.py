@@ -489,3 +489,30 @@ def test_mlp_gan_matches_jax_and_trains_fused():
     _assert_states_close(runs["fused"].state, runs["host"].state)
     with pytest.raises(NotImplementedError, match="A item 8"):
         tgan.mlp_gan_spec(tp_axis="model")
+
+
+def test_capture_allocator_setting_is_scoped(monkeypatch):
+    """`graphs._expandable_segments`, which a capture runs under: the
+    caching allocator's expandable segments set on entering the block
+    and off on leaving it, also when it raises; nothing set where the
+    environment turns them on for the whole process."""
+    calls = []
+    monkeypatch.setattr(graphs, "_set_allocator", calls.append)
+    for name in ("PYTORCH_CUDA_ALLOC_CONF", "PYTORCH_ALLOC_CONF"):
+        monkeypatch.delenv(name, raising=False)
+    with graphs._expandable_segments():
+        assert calls == ["expandable_segments:True"]
+    assert calls == ["expandable_segments:True", "expandable_segments:False"]
+    with pytest.raises(RuntimeError):
+        with graphs._expandable_segments():
+            raise RuntimeError("capture failed")
+    assert calls[2:] == ["expandable_segments:True",
+                         "expandable_segments:False"]
+    calls.clear()
+    for name in ("PYTORCH_CUDA_ALLOC_CONF", "PYTORCH_ALLOC_CONF"):
+        monkeypatch.setenv(name,
+                           "max_split_size_mb:64, expandable_segments:True")
+        with graphs._expandable_segments():
+            pass
+        monkeypatch.delenv(name)
+    assert calls == []

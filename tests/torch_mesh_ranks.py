@@ -75,14 +75,27 @@ def psum_cases(tree_stacked, cases, rank, world_size, device):
     return out
 
 
-def _dcgan(small):
-    from repro_torch.configs import DCGANConfig
+def _model(model):
+    """(spec, init_fn(generator)) of a model: the keyword arguments of a
+    DCGANConfig, or {"arch": name, "seq": seq_len, "changes": {...}} for
+    the backbone-GAN of a registered architecture's reduced config."""
     from repro_torch.models import specs
-    cfg = DCGANConfig(**small)
-    return cfg, specs.make_dcgan_spec(cfg)
+    if "arch" in model:
+        import dataclasses
+        from repro_torch.configs import get_arch_config
+        from repro_torch.models import gan
+        cfg = dataclasses.replace(get_arch_config(model["arch"]).reduced(),
+                                  **model.get("changes", {}))
+        return (specs.make_backbone_spec(cfg, model["seq"], remat=False,
+                                         gen_loss_variant="nonsaturating"),
+                lambda g: gan.gan_init(g, cfg))
+    from repro_torch.configs import DCGANConfig
+    from repro_torch.models import dcgan
+    cfg = DCGANConfig(**model)
+    return specs.make_dcgan_spec(cfg), lambda g: dcgan.gan_init(g, cfg)
 
 
-def round_cases(small, state, data, cases, rank, world_size, device):
+def round_cases(model, state, data, cases, rank, world_size, device):
     """One mesh round per case on this rank, each from `state` (the
     stacked-layout state of the JAX package: per-device optimizer states
     stacked K). Returns [(new rank state, metrics)]."""
@@ -90,7 +103,7 @@ def round_cases(small, state, data, cases, rank, world_size, device):
     from repro_torch.core import faults, shard_round
     from repro_torch.kernels.robust_avg.ops import RobustConfig
     _setup()
-    _, spec = _dcgan(small)
+    spec, _ = _model(model)
     out = []
     for case in cases:
         fedgan = case["algorithm"] == "fedgan"
@@ -117,20 +130,19 @@ def round_cases(small, state, data, cases, rank, world_size, device):
     return out
 
 
-def trainer_runs(small, data, runs, rank, world_size, device):
-    """`Trainer(layout="mesh")` for each run: 2 rounds of the run's
-    driver from the seeded initial parameters. Returns [(history, state,
-    the resolved driver)]."""
+def trainer_runs(model, data, runs, rank, world_size, device):
+    """`Trainer(layout="mesh")` of `model` (`_model`) for each run: 2
+    rounds of the run's driver from the seeded initial parameters.
+    Returns [(history, state, the resolved driver)]."""
     from repro_torch.configs import ProtocolConfig
     from repro_torch.core import Trainer
     from repro_torch.core.faults import FaultConfig
-    from repro_torch.models import dcgan
     _setup()
-    cfg, spec = _dcgan(small)
+    spec, init_fn = _model(model)
     out = []
     for run in runs:
-        tr = Trainer(spec, ProtocolConfig(**run["pcfg"]),
-                     lambda g: dcgan.gan_init(g, cfg), data, seed=run["seed"],
+        tr = Trainer(spec, ProtocolConfig(**run["pcfg"]), init_fn, data,
+                     seed=run["seed"],
                      algorithm=run["algorithm"], layout="mesh",
                      avg_impl=run["impl"], driver=run["driver"],
                      device=device,
@@ -156,20 +168,18 @@ def suite(parts, rank, world_size, device):
             for name, (body, args) in parts.items()}
 
 
-def checkpoint_run(small, data, run, directory, rank, world_size, device):
+def checkpoint_run(model, data, run, directory, rank, world_size, device):
     """`Trainer(layout="mesh")`: one round of the run's driver, then
     `save_checkpoint(directory)`; a second mesh Trainer restores it.
     Returns (the first Trainer's state, the restored Trainer's state,
     what save_checkpoint returned)."""
     from repro_torch.configs import ProtocolConfig
     from repro_torch.core import Trainer
-    from repro_torch.models import dcgan
     _setup()
-    cfg, spec = _dcgan(small)
+    spec, init_fn = _model(model)
 
     def make():
-        return Trainer(spec, ProtocolConfig(**run["pcfg"]),
-                       lambda g: dcgan.gan_init(g, cfg), data,
+        return Trainer(spec, ProtocolConfig(**run["pcfg"]), init_fn, data,
                        seed=run["seed"], algorithm=run["algorithm"],
                        layout="mesh", avg_impl=run["impl"],
                        driver=run["driver"], device=device)
@@ -180,3 +190,15 @@ def checkpoint_run(small, data, run, directory, rank, world_size, device):
     again = make()
     again.restore(directory)
     return tr.state, again.state, path
+
+
+def refusal(setting, rank, world_size, device):
+    """What `experiments.common._run_setting(setting)` raises on this rank
+    (a ValueError's message; None if it runs)."""
+    from repro_torch.experiments import common
+    _setup()
+    try:
+        common._run_setting(setting, device)
+    except ValueError as err:
+        return str(err)
+    return None
