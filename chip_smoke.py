@@ -162,6 +162,38 @@ Phases, in order; any failure exits non-zero:
               (fedgan_compare --layout mesh, the same two algorithms on
               the same ranks, is left to the CPU tests, which hold it to
               its stacked run.)
+  9. serving  the engine (`repro_torch.serving`), each run with the
+              launch counts at 0 (the engine launches no hand-written
+              kernel, as the JAX engine reaches no Pallas kernel):
+              a. granite-3-2b at full width and depth (40 layers,
+                 vocabulary 49,155, the generator alone) at batch 8,
+                 max_len 1,024, 16-token blocks, 32-token prefill chunks,
+                 16 seeded requests (prompts 16-512, 32-64 new tokens,
+                 every other at temperature 0.8) through the paged engine
+                 (each step program captured as a CUDA graph), the dense
+                 one, and the paged one stepped uncaptured: tokens equal
+                 bit for bit, and the captured engine's cache leaves the
+                 uncaptured one's; 4 greedy requests against the full
+                 forward up to the first step with a top-2 logit margin
+                 under 1e-4; a profiled decode-only replay; one
+                 mode="prefill" call of 600 tokens (40 flash_attn
+                 launches) and 4 decode steps against the engine's
+                 chunked prefill at rtol 1e-4
+              d. the front end: two threads submit a's greedy requests to
+                 a ServingFrontend over a's engine; its futures give a's
+                 tokens, a request that cannot fit raises RuntimeError
+              b. phase 7's host-trained mamba2-130m generator, saved with
+                 save_checkpoint and served by `launch.serve.main` on the
+                 card and on the CPU: the same greedy tokens up to the
+                 first near tie; one mode="prefill" of 512 tokens (24
+                 ssd_scan launches) and 4 decode steps against the
+                 chunked prefill at rtol 1e-4
+              c. gemma3-12b at full width, one 5:1 group, vocabulary
+                 32,768, prompts of 1,100-1,500 tokens (the 1,024-key
+                 rings wrap in chunked prefill; the global layer pages):
+                 paged = dense tokens, the first sampled position's
+                 logits against the full forward at rtol 1e-4
+              The "serving" path's launches are the mode="prefill" calls'.
 The last two lines are the `kernels` JSON line and
 {"ok": true, "device": {...}}.
 """
@@ -2081,7 +2113,7 @@ def driver_mismatch(host, fused):
 
 
 def compare_drivers(torch, label, make_trainer, n_rounds, *, want,
-                    peak=False, planted=False, keep=None):
+                    peak=False, planted=False, keep=None, keep_gen=False):
     """`n_rounds` rounds of `make_trainer("host")`, then of
     `make_trainer("fused")`, under cuDNN's deterministic algorithms
     (`train_fused`), so that the two drivers run the same kernels on the
@@ -2093,7 +2125,8 @@ def compare_drivers(torch, label, make_trainer, n_rounds, *, want,
     whose kernels must launch `want` times. With `planted`, the check
     must also fail on a fused run whose slots keep round 0's draws (a
     replay that is not refilled). With `keep`, the host run's records
-    go to keep[label]. Returns a summary for the `fused` JSON line."""
+    go to keep[label]; with `keep_gen` too, its generator's parameters,
+    on the host, to keep[label + " generator"]. Returns a summary for the `fused` JSON line."""
     out, runs = {}, {}
     for driver in ("host", "fused"):
         torch.cuda.empty_cache()
@@ -2109,6 +2142,10 @@ def compare_drivers(torch, label, make_trainer, n_rounds, *, want,
                                          / 2**30)
         runs[driver] = (recs, _params(trainer))
         if driver == "host":
+            if keep_gen:
+                from repro_torch.tree import tree_map
+                keep[f"{label} generator"] = tree_map(
+                    lambda t: t.detach().cpu(), trainer.state["gen"])
             del trainer
     graph = trainer._graph
     if not (graph.captured and graph.eager_rounds == 1
@@ -2231,7 +2268,8 @@ def train_fused(torch, shards, card, tokens):
     backbone-GANs of phase 5 (K=4, with their peak memory, on phase 5's
     `tokens`): mamba2-130m, granite-3-2b (4 layers) and minitron-4b (2
     layers, vocabulary 32,768). Returns the results and each backbone's
-    host-driver records, by architecture."""
+    host-driver records, by architecture (and mamba2-130m's host-trained
+    generator, for phase 9)."""
     from repro_torch.configs import DCGANConfig, ProtocolConfig
     from repro_torch.core import Trainer
     from repro_torch.core.channel import ChannelConfig
@@ -2302,7 +2340,7 @@ def train_fused(torch, shards, card, tokens):
             bb = dict(bb, name=name)
             results[bb["arch"]] = compare_drivers(
                 torch, bb["arch"], functools.partial(backbone_run, bb), 3,
-                peak=True, keep=host_records,
+                peak=True, keep=host_records, keep_gen=name == "mamba2",
                 want={"wavg": 1, **{kernel: bb["per_round"]
                                     for kernel in kernels}})
     finally:
@@ -3117,6 +3155,564 @@ def train_experiments(torch, shards, card, wavg_ops, robust_ops,
 
 
 # ---------------------------------------------------------------------------
+# Phase 9: serving
+# ---------------------------------------------------------------------------
+
+# The serving paths: granite-3-2b at full width and depth (40 layers,
+# vocabulary 49,155, the generator alone) behind the engine at batch 8,
+# max_len 1,024, 16-token blocks, 32-token prefill chunks, on 16 seeded
+# requests (prompts of 16-512 tokens, 32-64 new, every other one at
+# temperature 0.8); gemma3-12b at full width, one 5:1 group and the
+# vocabulary cut to 32,768 (as phase 5g), on prompts of 1,100-1,500
+# tokens, so that chunked prefill wraps the 1,024-key rings.
+SERVE_GRANITE = dict(arch="granite-3-2b", layers=40, batch=8, max_len=1024,
+                     block=16, chunk=32, requests=16, prompt=(16, 512),
+                     new=(32, 64), prefill=600, gen_size=2_638_657_536)
+SERVE_GEMMA3 = dict(arch="gemma3-12b", layers=6, vocab=32_768, batch=2,
+                    max_len=1600, block=16, chunk=32, requests=3,
+                    prompt=(1100, 1500), new=(8, 16), gen_size=1_611_747_072)
+NEAR_TIE = 1e-4          # a greedy step whose top-2 logit margin is less
+SERVE_RTOL = 1e-4        # logits, of the largest |logit| (see close_logits)
+
+
+def serving_traffic(vocab, setting, seed=0):
+    """`setting["requests"]` seeded (prompt, max_new, temperature):
+    prompt lengths and new tokens uniform in the setting's ranges, even
+    rids greedy and odd ones at temperature 0.8."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lo, hi = setting["prompt"]
+    return [(rng.integers(0, vocab, int(rng.integers(lo, hi + 1))).astype(
+        np.int32), int(rng.integers(setting["new"][0],
+                                    setting["new"][1] + 1)),
+             0.0 if rid % 2 == 0 else 0.8)
+            for rid in range(setting["requests"])]
+
+
+def kernel_counts(kernel_mods):
+    return {name: mod.launches for name, mod in kernel_mods.items()}
+
+
+def zero_counts(kernel_mods):
+    for mod in kernel_mods.values():
+        mod.launches = 0
+
+
+def serve_traffic(torch, engine, work, kernel_mods):
+    """Serve `work` (rids 0..) through `engine` with every launch count
+    at 0: {rid: tokens}, the wall seconds, each step's (bucket, seconds)
+    and the counts, which must stay 0 (the engine runs no hand-written
+    kernel, as the JAX engine reaches no Pallas kernel)."""
+    from repro_torch.serving import Request
+    steps = []
+    get = engine._get_step
+
+    def recording(chunk):        # the bucket of each step
+        steps.append([chunk])
+        return get(chunk)
+
+    engine._get_step = recording
+    for i, (p, n, t) in enumerate(work):
+        engine.submit(Request(rid=i, prompt=p, max_new_tokens=n,
+                              temperature=t))
+    zero_counts(kernel_mods)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while engine.queue or any(s is not None for s in engine.slots):
+        t1 = time.perf_counter()
+        if not engine.step():
+            raise AssertionError("the engine stalled")
+        steps[-1].append(time.perf_counter() - t1)   # ends in a readback
+    wall = time.perf_counter() - t0
+    del engine._get_step
+    counts = kernel_counts(kernel_mods)
+    if any(counts.values()):
+        raise AssertionError(f"hand-written kernels inside the engine: "
+                             f"{counts}")
+    if engine.rejected or len(engine.finished) != len(work):
+        raise AssertionError(f"{len(engine.finished)} of {len(work)} "
+                             f"requests finished, rejected "
+                             f"{[r.failed for r in engine.rejected]}")
+    return ({r.rid: list(r.out_tokens) for r in engine.finished}, wall,
+            steps, counts)
+
+
+def decode_only_ms(steps):
+    """Mean ms of the decode-only steps after each program's first."""
+    seen, ms = set(), []
+    for chunk, secs in steps:
+        if chunk is None and chunk in seen:
+            ms.append(secs * 1e3)
+        seen.add(chunk)
+    return statistics.mean(ms), len(ms)
+
+
+def close_logits(torch, got, want, label):
+    """got against want within SERVE_RTOL relative, with an absolute
+    floor of SERVE_RTOL times the largest |want| (a logit near 0 has no
+    relative scale); returns the max abs error."""
+    got, want = got.float(), want.float()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    torch.testing.assert_close(got, want, rtol=SERVE_RTOL,
+                               atol=SERVE_RTOL * scale, msg=lambda m:
+                               f"{label}: {m}")
+    return err, scale
+
+
+def teacher_forced(torch, gan, params, cfg, prompt, tokens):
+    """The full forward's logits before each of `tokens`, fed the prompt
+    and `tokens`: (len(tokens), vocab) float32."""
+    import numpy as np
+    seq = torch.from_numpy(np.concatenate(
+        [np.asarray(prompt), np.asarray(tokens[:-1])]).astype(np.int64)).to(
+        params["embed"]["table"].device)[None]
+    with torch.no_grad():
+        logits = gan.generator_lm_apply(params, cfg, seq, mode="train",
+                                        remat=False)["logits"][0]
+    return logits[len(prompt) - 1:].float()
+
+
+def held_until_tie(tokens, ref_tokens, ref_logits, label):
+    """`tokens` equal `ref_tokens` up to the first step whose reference
+    top-2 logit margin is under NEAR_TIE; returns that step (None: no
+    near tie)."""
+    top2 = ref_logits.topk(2, dim=-1).values
+    margin = (top2[:, 0] - top2[:, 1]).cpu().tolist()
+    for j, (a, b) in enumerate(zip(tokens, ref_tokens)):
+        if margin[j] < NEAR_TIE:
+            return j
+        if a != b:
+            raise AssertionError(f"{label}: step {j} gives {a}, the "
+                                 f"reference {b} (its top-2 margin "
+                                 f"{margin[j]:.3e})")
+    return None
+
+
+def chunked_prefill(torch, gan, cfg, params, prompt, chunk, cache_len):
+    """The engine's chunked prefill of one prompt, as its step runs it:
+    `generator_lm_apply` in decode mode over chunks of `chunk` tokens
+    (the last padded to a power-of-two bucket, its tail masked) at their
+    positions, against dense float32 caches of `cache_len`. Returns the
+    prompt's logits and the caches."""
+    from repro_torch.models.backbone import init_decode_caches
+    from repro_torch.serving.engine import _pow2_bucket
+    device = params["embed"]["table"].device
+    caches = init_decode_caches(cfg, 1, cache_len, dtype=torch.float32,
+                                device=device)
+    logits = []
+    with torch.no_grad():
+        for p0 in range(0, len(prompt), chunk):
+            piece = torch.as_tensor(prompt[p0:p0 + chunk], device=device)
+            n = len(piece)
+            bucket = chunk if n == chunk else _pow2_bucket(n)
+            steps = torch.arange(bucket, device=device)
+            toks = torch.zeros((1, bucket), dtype=torch.int64, device=device)
+            toks[0, :n] = piece
+            out = gan.generator_lm_apply(
+                params, cfg, toks, mode="decode", caches=caches,
+                positions=(p0 + steps)[None],
+                cache_write_mask=(steps < n)[None], remat=False)
+            logits.append(out["logits"][0, :n])
+    return torch.cat(logits), caches
+
+
+def prefill_against_chunked(torch, gan, cfg, params, prompt, kernel,
+                            kernel_mods, n_decode=4, chunk=32):
+    """One `mode="prefill"` call on `prompt` (it launches `kernel`: the
+    flash attention or the SSD scan, with its final state), then
+    `n_decode` greedy decode steps from its caches (scalar cache_index);
+    the same prompt through the engine's chunked prefill and the same
+    tokens decoded at their positions. Logits held at SERVE_RTOL.
+    Returns the kernel's launches in the prefill call and the errors."""
+    device = params["embed"]["table"].device
+    n = len(prompt)
+    toks = torch.as_tensor(prompt, device=device)[None]
+    zero_counts(kernel_mods)
+    with torch.no_grad():
+        pre = gan.generator_lm_apply(params, cfg, toks, mode="prefill",
+                                     prefill_cache_len=n + n_decode,
+                                     remat=False)
+    torch.cuda.synchronize()
+    launches = kernel_counts(kernel_mods)
+    if any(v for k, v in launches.items() if k != kernel):
+        raise AssertionError(f"prefill launched {launches}")
+    ref, caches = chunked_prefill(torch, gan, cfg, params, prompt, chunk,
+                                  n + n_decode)
+    errs = {"prefill": close_logits(torch, pre["logits"][0], ref,
+                                    f"{cfg.name} prefill")}
+    cur = pre["logits"][0, -1].argmax()
+    pre_caches = pre["caches"]
+    dec = []
+    with torch.no_grad():
+        for t in range(n_decode):
+            tok = cur.reshape(1, 1)
+            a = gan.generator_lm_apply(params, cfg, tok, mode="decode",
+                                       caches=pre_caches, cache_index=n + t,
+                                       remat=False)["logits"][0, 0]
+            b = gan.generator_lm_apply(
+                params, cfg, tok, mode="decode", caches=caches,
+                positions=torch.full((1, 1), n + t, device=device),
+                remat=False)["logits"][0, 0]
+            dec.append(close_logits(torch, a, b,
+                                    f"{cfg.name} decode step {t}"))
+            cur = a.argmax()
+    zero_counts(kernel_mods)
+    errs["decode"] = max(dec)
+    return launches[kernel], errs
+
+
+def serving_engine(torch, cfg, params, setting, *, paged, capture=True):
+    from repro_torch.serving import ServingEngine
+    torch.cuda.empty_cache()
+    eng = ServingEngine(cfg, params, batch_size=setting["batch"],
+                        max_len=setting["max_len"],
+                        block_size=setting["block"] if paged else None,
+                        prefill_chunk=setting["chunk"], seed=0,
+                        device="cuda")
+    eng._capture = capture
+    return eng
+
+
+def serve_granite(torch, kernel_mods, out):
+    """9a: granite-3-2b at full width and depth: the traffic through the
+    paged engine (captured), the dense engine (captured) and the paged
+    engine stepped uncaptured; the greedy tokens against the full
+    forward; one mode="prefill" call of 600 tokens against the engine's
+    chunked prefill. Returns the paged engine, the greedy requests and
+    their tokens, and the path's flash_attn launches."""
+    from repro_torch.core.protocol import count_params
+    from repro_torch.models import gan
+    from repro_torch.tree import tree_leaves
+    setting = SERVE_GRANITE
+    cfg = backbone_config(setting)
+    torch.cuda.reset_peak_memory_stats()
+    params = gan.generator_init(torch.Generator("cuda").manual_seed(0), cfg)
+    size = count_params(params)
+    if size != setting["gen_size"]:
+        raise AssertionError(f"{cfg.name} generator {size}")
+    lm_bytes = 4 * (count_params(params["backbone"])
+                    + params["lm_head"].numel())
+    work = serving_traffic(cfg.vocab, setting)
+    runs = {}
+    for label, paged, capture in (("paged", True, True),
+                                  ("dense", False, True),
+                                  ("paged uncaptured", True, False)):
+        eng = serving_engine(torch, cfg, params, setting, paged=paged,
+                             capture=capture)
+        toks, wall, steps, _ = serve_traffic(torch, eng, work, kernel_mods)
+        runs[label] = dict(tokens=toks, wall=wall, steps=steps, engine=eng,
+                           bytes=eng.cache_bytes())
+        if label == "dense":
+            del eng, runs[label]["engine"]
+    paged, dense, eager = (runs[k] for k in ("paged", "dense",
+                                             "paged uncaptured"))
+    if dense["tokens"] != paged["tokens"]:
+        raise AssertionError("granite: paged and dense tokens differ")
+    if eager["tokens"] != paged["tokens"]:
+        raise AssertionError("granite: captured and uncaptured tokens "
+                             "differ")
+    for a, b in zip(tree_leaves(paged["engine"].caches),
+                    tree_leaves(eager["engine"].caches)):
+        if not torch.equal(a, b):
+            raise AssertionError("granite: captured and uncaptured cache "
+                                 "leaves differ")
+    engine = paged["engine"]
+    del eager["engine"]
+    torch.cuda.empty_cache()
+    greedy = [rid for rid, (_, _, t) in enumerate(work) if t == 0.0][:4]
+    ties = {}
+    for rid in greedy:
+        prompt, _, _ = work[rid]
+        toks = paged["tokens"][rid]
+        ref = teacher_forced(torch, gan, params, cfg, prompt, toks)
+        ties[rid] = held_until_tie(toks, ref.argmax(-1).tolist(), ref,
+                                   f"granite rid {rid}")
+    prompt = serving_traffic(cfg.vocab, dict(setting, requests=1,
+                                             prompt=(setting["prefill"],) * 2),
+                             seed=5)[0][0]
+    flash, errs = prefill_against_chunked(torch, gan, cfg, params, prompt,
+                                          "flash_attn", kernel_mods)
+    if flash != cfg.n_layers:
+        raise AssertionError(f"granite prefill: {flash} flash_attn "
+                             f"launches, expected {cfg.n_layers}")
+    prof = profile_decode(torch, engine, cfg.vocab)
+    n_tok = sum(len(t) for t in paged["tokens"].values())
+    dec_ms, n_dec = decode_only_ms(paged["steps"])
+    eager_ms, _ = decode_only_ms(eager["steps"])
+    first = paged["steps"][0][1]
+    out["granite-3-2b"] = dict(
+        generator_params=size, tokens=n_tok,
+        tokens_per_s=n_tok / paged["wall"], wall_s=paged["wall"],
+        steps=engine.dispatch_count, captures=engine.compile_count,
+        first_step_s=first,
+        first_step_per_program_s={str(c): s for c, s in
+                                  _first_steps(paged["steps"]).items()},
+        decode_step_ms=dec_ms, decode_steps=n_dec,
+        uncaptured_decode_step_ms=eager_ms,
+        uncaptured_wall_s=eager["wall"], dense_wall_s=dense["wall"],
+        weight_read_bound_ms=lm_bytes / HBM_BYTES_PER_S * 1e3,
+        lm_weight_bytes=lm_bytes, cache_bytes_paged=paged["bytes"],
+        cache_bytes_dense=dense["bytes"], decode_step_profile=prof,
+        first_near_tie=ties,
+        prefill_flash_attn=flash, prefill_max_abs_err=errs,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    r = out["granite-3-2b"]
+    print(f"9a granite-3-2b ({cfg.n_layers} layers, {size:,} generator "
+          f"parameters): "
+          f"{len(work)} requests, {n_tok} tokens in {paged['wall']:.3f} s "
+          f"({r['tokens_per_s']:.1f} tokens/s), {engine.dispatch_count} "
+          f"steps, {engine.compile_count} captures; first step (eager + "
+          f"capture) {first:.3f} s; decode-only step replayed "
+          f"{dec_ms:.3f} ms (mean of {n_dec}), uncaptured {eager_ms:.3f} "
+          f"ms, weight-read bound {r['weight_read_bound_ms']:.3f} ms "
+          f"({lm_bytes / 1e9:.2f} GB at 3.35 TB/s); cache bytes dense "
+          f"{dense['bytes']:,}, paged {paged['bytes']:,}; paged = dense = "
+          f"uncaptured tokens, captured = uncaptured cache leaves, bit for "
+          f"bit; 0 kernel launches in the engine; greedy against the full "
+          f"forward, first near tie (margin < {NEAR_TIE}) by rid: {ties}; "
+          f"prefill of {len(prompt)} tokens: {flash} flash_attn launches, "
+          f"logits max abs err {errs}; peak {r['peak_gib']:.2f} GiB; a "
+          f"profiled decode-only replay: {prof['wall_ms']:.3f} ms wall, "
+          f"{prof['busy_ms']:.3f} ms device busy, "
+          f"{prof['device_ops']:.0f} device ops, top kernels (ms) "
+          f"{prof['top_kernels_ms']}")
+    greedy_work = [(work[rid][0], work[rid][1]) for rid in greedy]
+    greedy_tokens = [paged["tokens"][rid] for rid in greedy]
+    return engine, greedy_work, greedy_tokens, flash
+
+
+def profile_decode(torch, engine, vocab, n_steps=3):
+    """Where a replayed decode-only step's time goes: the idle `engine`
+    takes one 16-token request a slot, steps until every slot decodes,
+    then `n_steps` decode-only steps run under torch.profiler's CUDA
+    activity: wall and device-busy ms a step, device ops a step, and
+    the kernels that take the most device time."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(7)
+    for i in range(engine.b):
+        engine.submit(Request(
+            rid=1000 + i, prompt=rng.integers(0, vocab, 16).astype(np.int32),
+            max_new_tokens=engine.b + n_steps + 2))
+    while not all(s is not None and s.prefilled for s in engine.slots):
+        engine.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            engine.step()
+        wall = time.perf_counter() - t0
+    events = [e[:3] for e in _device_records(torch, prof) if not e[3]]
+    busy = sum(b - a for a, b in _merged(e[1:] for e in events)) / 1e9
+    by_name = {}
+    for name, start, stop in events:
+        by_name[name] = by_name.get(name, 0) + (stop - start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    engine.run()
+    engine.finished.clear()
+    return dict(wall_ms=wall / n_steps * 1e3,
+                busy_ms=busy / n_steps * 1e3,
+                device_ops=len(events) / n_steps,
+                top_kernels_ms=[(name[:70], ns / n_steps / 1e6)
+                                for name, ns in top])
+
+
+def _first_steps(steps):
+    first = {}
+    for chunk, secs in steps:
+        first.setdefault(chunk, secs)
+    return first
+
+
+def serve_mamba2(torch, gen, directory, kernel_mods, out):
+    """9b: phase 7's host-trained mamba2-130m generator (on the host),
+    saved with the port's save_checkpoint in the Trainer layout and
+    served through `launch.serve.main` on the card and on the CPU: the
+    card's greedy tokens held to the CPU's up to the first near tie; one
+    mode="prefill" of 512 tokens against the engine's chunked prefill.
+    Returns the path's ssd_scan launches."""
+    import io
+    import re
+    import numpy as np
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.configs import get_arch_config
+    from repro_torch.launch import serve
+    from repro_torch.models import gan
+    from repro_torch.tree import tree_map
+    cfg = get_arch_config("mamba2-130m")
+    ckpt = os.path.join(directory, "mamba2_gen")
+    t0 = time.perf_counter()
+    save_checkpoint(ckpt, 3, {"state": {"gen": gen}})
+    save_s = time.perf_counter() - t0
+    argv = ["--arch", "mamba2-130m", "--ckpt-dir", ckpt, "--demo", "6",
+            "--max-new", "24", "--batch", "4", "--max-len", "128",
+            "--block-size", "16", "--prefill-chunk", "8"]
+    served = {}
+    for where, device in (("card", "cuda"), ("host", "cpu")):
+        buf = io.StringIO()
+        zero_counts(kernel_mods)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            if serve.main(argv + ["--device", device]) != 0:
+                raise AssertionError(f"serve.main on {device} failed")
+        secs = time.perf_counter() - t0
+        if where == "card" and any(kernel_counts(kernel_mods).values()):
+            raise AssertionError(f"kernels inside the engine: "
+                                 f"{kernel_counts(kernel_mods)}")
+        text = buf.getvalue()
+        served[where] = ({int(m.group(1)): json.loads(m.group(2))
+                          for m in re.finditer(r"rid=(\d+): (\[.*\])",
+                                               text)}, secs, text)
+    card, cpu = served["card"][0], served["host"][0]
+    if sorted(card) != sorted(cpu) or not card:
+        raise AssertionError(f"mamba2 served {sorted(card)} on the card, "
+                             f"{sorted(cpu)} on the CPU")
+    params_cpu = tree_map(lambda t: t.float(), gen)
+    rng = np.random.default_rng(0)     # serve.main's demo prompts
+    ties = {}
+    for rid in sorted(cpu):
+        prompt = rng.integers(1, cfg.vocab, rng.integers(4, 17))
+        ref = teacher_forced(torch, gan, params_cpu, cfg, prompt, cpu[rid])
+        held_until_tie(cpu[rid], ref.argmax(-1).tolist(), ref,
+                       f"mamba2 CPU rid {rid}")
+        ties[rid] = held_until_tie(card[rid], cpu[rid], ref,
+                                   f"mamba2 card rid {rid}")
+    params = tree_map(lambda t: t.to("cuda"), gen)
+    prompt = np.random.default_rng(6).integers(0, cfg.vocab, 512)
+    ssd, errs = prefill_against_chunked(torch, gan, cfg, params, prompt,
+                                        "ssd_scan", kernel_mods)
+    if ssd != cfg.n_layers:
+        raise AssertionError(f"mamba2 prefill: {ssd} ssd_scan launches, "
+                             f"expected {cfg.n_layers}")
+    out["mamba2-130m"] = dict(save_s=save_s, serve_card_s=served["card"][1],
+                              serve_cpu_s=served["host"][1],
+                              first_near_tie=ties, prefill_ssd_scan=ssd,
+                              prefill_max_abs_err=errs)
+    print(f"9b mamba2-130m, phase 7's host-trained generator: saved in "
+          f"{save_s:.2f} s, served by launch.serve.main on the card in "
+          f"{served['card'][1]:.2f} s and on the CPU in "
+          f"{served['host'][1]:.2f} s; card = CPU greedy tokens, first near "
+          f"tie by rid: {ties}; the card's summary: "
+          f"{served['card'][2].strip().splitlines()[-1]}; prefill of 512 "
+          f"tokens: {ssd} ssd_scan launches, logits max abs err {errs}")
+    return ssd
+
+
+def serve_gemma3(torch, kernel_mods, out):
+    """9c: gemma3-12b at full width (one 5:1 group, vocabulary 32,768):
+    prompts of 1,100-1,500 tokens wrap the 1,024-key rings in chunked
+    prefill; the global layer pages. Paged and dense tokens bit for bit;
+    the first sampled position's logits (the engine's chunked prefill)
+    against the full forward."""
+    from repro_torch.core.protocol import count_params
+    from repro_torch.models import gan
+    setting = SERVE_GEMMA3
+    cfg = backbone_config(setting)
+    torch.cuda.empty_cache()
+    params = gan.generator_init(torch.Generator("cuda").manual_seed(0), cfg)
+    if count_params(params) != setting["gen_size"]:
+        raise AssertionError(f"{cfg.name} generator {count_params(params)}")
+    work = serving_traffic(cfg.vocab, setting, seed=1)
+    runs = {}
+    for paged in (True, False):
+        eng = serving_engine(torch, cfg, params, setting, paged=paged)
+        runs[paged] = serve_traffic(torch, eng, work, kernel_mods)[:2]
+        del eng
+    if runs[True][0] != runs[False][0]:
+        raise AssertionError("gemma3: paged and dense tokens differ")
+    prompt = work[0][0]
+    chunked, _ = chunked_prefill(torch, gan, cfg, params, prompt,
+                                 setting["chunk"], setting["max_len"])
+    with torch.no_grad():
+        full = gan.generator_lm_apply(
+            params, cfg, torch.as_tensor(prompt, device="cuda")[None],
+            mode="train", remat=False)["logits"][0, -1]
+    zero_counts(kernel_mods)
+    err = close_logits(torch, chunked[-1], full, "gemma3 first sample")
+    out["gemma3-12b"] = dict(paged_wall_s=runs[True][1],
+                             dense_wall_s=runs[False][1],
+                             tokens=sum(len(t) for t in runs[True][0].values()),
+                             first_sample_max_abs_err=err)
+    print(f"9c gemma3-12b (one 5:1 group, vocab 32,768): prompts "
+          f"{[len(p) for p, _, _ in work]} tokens, paged = dense tokens bit "
+          f"for bit ({runs[True][1]:.2f} / {runs[False][1]:.2f} s); the "
+          f"first sampled position's logits against the full forward: max "
+          f"abs err {err}")
+    del params
+
+
+def serve_frontend(torch, engine, greedy_work, greedy_tokens):
+    """9d: two threads submit 9a's greedy requests to a ServingFrontend
+    over 9a's paged engine (its graphs replay on the driver thread):
+    the futures resolve to 9a's tokens; a request that cannot fit
+    raises RuntimeError."""
+    import threading
+    import numpy as np
+    from repro_torch.serving import ServingFrontend
+    engine.finished.clear()
+    engine.rejected.clear()
+    futures = {}
+    with ServingFrontend(engine) as front:
+        def submit(idx):
+            for i in idx:
+                p, n = greedy_work[i]
+                futures[i] = front.submit(p, max_new_tokens=n)
+
+        threads = [threading.Thread(target=submit, args=(idx,))
+                   for idx in (range(0, len(greedy_work), 2),
+                               range(1, len(greedy_work), 2))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        too_long = front.submit(np.ones(engine.max_len, np.int32), 8)
+        got = [futures[i].result(timeout=300).out_tokens
+               for i in range(len(greedy_work))]
+        try:
+            too_long.result(timeout=300)
+            raise AssertionError("the frontend served a request that "
+                                 "cannot fit")
+        except RuntimeError as exc:
+            reason = str(exc)
+    if got != greedy_tokens:
+        raise AssertionError("frontend tokens differ from 9a's")
+    print(f"9d frontend: two threads, {len(got)} greedy requests resolved "
+          f"to 9a's tokens; a request that cannot fit: RuntimeError "
+          f"({reason})")
+
+
+def serve_phase(torch, card, kernel_mods, mamba_gen):
+    """Phase 9 on `card`. Returns the "serving" path's launches by
+    kernel: the mode="prefill" calls' (9a's flash_attn, 9b's ssd_scan);
+    the engines launch none."""
+    import tempfile
+    out = {}
+    engine, greedy_work, greedy_tokens, flash = serve_granite(
+        torch, kernel_mods, out)
+    stamp("serving: granite-3-2b")
+    serve_frontend(torch, engine, greedy_work, greedy_tokens)
+    del engine
+    torch.cuda.empty_cache()
+    stamp("serving: frontend")
+    base = os.path.join(ROOT, "results", "torch")
+    os.makedirs(base, exist_ok=True)
+    directory = tempfile.mkdtemp(prefix="chip_smoke_serve_", dir=base)
+    try:
+        ssd = serve_mamba2(torch, mamba_gen, directory, kernel_mods, out)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    stamp("serving: mamba2-130m")
+    serve_gemma3(torch, kernel_mods, out)
+    torch.cuda.empty_cache()
+    stamp("serving: gemma3-12b")
+    print(f"serving phase on {card}")
+    print(json.dumps({"serving": out}, default=float))
+    return {"flash_attn": flash, "ssd_scan": ssd}
+
+
+# ---------------------------------------------------------------------------
 # --allocator-ab: host-driver rounds under the allocator's two segment kinds
 # ---------------------------------------------------------------------------
 
@@ -3364,6 +3960,20 @@ def main() -> int:
             entry["launches_by_path"][path] = n
             entry["launches"] += n
     stamp("experiments")
+
+    # 9. serving: the engine, its front end and the serve CLI on
+    # granite-3-2b, mamba2-130m (phase 7's host-trained generator) and
+    # gemma3-12b; the mode="prefill" calls' launches form the path's
+    kernel_mods = {"wavg": ops, "trimmed_wavg": robust_ops,
+                   "ssd_scan": ssd_ops, "flash_attn": flash_ops,
+                   "ring_accum": ring_ops}
+    serving = serve_phase(torch, card, kernel_mods,
+                          host_records.pop("mamba2-130m generator"))
+    for entry in (wavg, trimmed, ssd, flash, ring):
+        n = serving.get(entry["name"], 0)
+        entry["launches_by_path"]["serving"] = n
+        entry["launches"] += n
+    stamp("serving")
 
     print(json.dumps({"kernels": [wavg, trimmed, ssd, flash, ring]}))
     print(json.dumps({"ok": True, "device": {

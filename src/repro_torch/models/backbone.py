@@ -1,5 +1,5 @@
 """The grouped backbone (port of `repro.models.backbone`) for the
-`dense` and `ssm` families on the training path.
+`dense` and `ssm` families.
 
 A backbone is a repeated group of sublayers (`cfg.group_pattern`),
 `cfg.n_groups_stack` times, with every parameter stacked on a leading
@@ -10,13 +10,17 @@ averages, so keeping the JAX tree keeps the uploads identical; the loop
 indexes group i of each stacked leaf.
 
 Dense groups are ("attn",), or a local:global pattern of sliding-window
-and full attention; RoPE takes query and key i at position i. Other
-families (moe, hybrid, encdec, vlm), and the prefill and decode modes,
-raise NotImplementedError (ROADMAP A13, A14).
+and full attention. Modes: "train" (the full sequence), "prefill" (the
+full sequence, and the decode caches it leaves), "decode" (tokens at
+any positions against caches, updated in place). Other families (moe,
+hybrid, encdec, vlm) raise NotImplementedError (ROADMAP A13), and so do
+cross caches and encoder states; tensor parallelism raises too (A12).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import nn
@@ -42,14 +46,6 @@ def _sublayer_init(generator: torch.Generator, cfg: ArchConfig, kind: str):
     return blocks.ssm_layer_init(generator, cfg)
 
 
-def _run_sublayer(params_i, cfg: ArchConfig, kind: str, h, inv_freq):
-    if kind in _ATTN:
-        return blocks.attn_layer_apply(params_i, cfg, h,
-                                       window=cfg.sublayer_window(kind),
-                                       inv_freq=inv_freq)
-    return blocks.ssm_layer_apply(params_i, cfg, h)
-
-
 def backbone_init(generator: torch.Generator, cfg: ArchConfig):
     _check_family(cfg)
     pattern = cfg.group_pattern
@@ -64,38 +60,198 @@ def backbone_init(generator: torch.Generator, cfg: ArchConfig):
                                             device=generator.device)}
 
 
-def backbone_apply(params, cfg: ArchConfig, h, *, mode: str = "train",
-                   remat: bool = True, **unsupported):
-    """Run the backbone on the training path. h: (b, s, d) hidden states
-    (already embedded / projected). remat=True recomputes each group in
-    the backward pass (`torch.utils.checkpoint`, same math).
-    Returns dict(h=..., aux=..., caches=None)."""
+# ---------------------------------------------------------------------------
+# Decode caches
+# ---------------------------------------------------------------------------
+
+def _attn_cache(cfg: ArchConfig, batch: int, length: int, dtype, device):
+    shape = (batch, length, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos": torch.zeros((batch, length), dtype=torch.int32,
+                               device=device),
+            "valid": torch.zeros((batch, length), dtype=torch.bool,
+                                 device=device)}
+
+
+def _ssm_cache(cfg: ArchConfig, batch: int, dtype, device):
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    n_heads = d_inner // s.head_dim
+    conv_dim = d_inner + 2 * s.n_groups * s.d_state
+    return {"ssm": torch.zeros((batch, n_heads, s.d_state, s.head_dim),
+                               dtype=torch.float32, device=device),
+            "conv": torch.zeros((batch, s.d_conv - 1, conv_dim),
+                                dtype=dtype, device=device)}
+
+
+def sublayer_cache_shape(cfg: ArchConfig, kind: str, batch: int,
+                         cache_len: int, dtype, device=None):
+    """Zeroed decode cache of one sublayer (the JAX package's tree and
+    leaf names): attention {"k", "v", "pos", "valid"} of cache_len slots
+    (at most the window's), Mamba-2 {"ssm" (always float32), "conv"}."""
+    if kind in _ATTN:
+        window = cfg.sublayer_window(kind)
+        length = cache_len if window is None else min(window, cache_len)
+        return _attn_cache(cfg, batch, length, dtype, device)
+    if kind == "ssm":
+        return _ssm_cache(cfg, batch, dtype, device)
+    raise NotImplementedError(f"{kind!r} sublayer caches are not ported "
+                              f"(ROADMAP A13)")
+
+
+def init_decode_caches(cfg: ArchConfig, batch: int, cache_len: int,
+                       dtype=torch.bfloat16, device=None):
+    """Zeroed decode caches {"subI": leaves with a leading group axis}."""
     _check_family(cfg)
-    if mode != "train" or any(v is not None for v in unsupported.values()):
-        raise NotImplementedError(
-            f"backbone_apply(mode={mode!r}, {sorted(unsupported)}) is not "
-            f"ported; the port runs mode='train' (ROADMAP A14)")
+    g = cfg.n_groups_stack
+    return {f"sub{i}": {name: leaf.expand((g,) + leaf.shape).clone()
+                        for name, leaf in sublayer_cache_shape(
+                            cfg, kind, batch, cache_len, dtype,
+                            device).items()}
+            for i, kind in enumerate(cfg.group_pattern)}
+
+
+# ---------------------------------------------------------------------------
+# Apply
+# ---------------------------------------------------------------------------
+
+def _kv_to_cache(kv, positions, window, cache_len: int):
+    """Full-sequence k/v (b, s, kv, hd) as a decode cache. Full
+    attention: the s entries at slots [0, s) of cache_len. A sliding
+    window: the last `window` entries at their ring slots (pos % window),
+    so that a later insert at pos % window stays consistent."""
+    k, v = kv["k"], kv["v"]
+    b, s = k.shape[0], k.shape[1]
+    if positions is None:
+        positions = torch.arange(s, device=k.device).expand(b, s)
+    if window is None or window >= cache_len:
+        pad = cache_len - s
+        if pad < 0:
+            raise ValueError(f"prefill length {s} exceeds cache {cache_len}")
+        valid = torch.zeros((b, cache_len), dtype=torch.bool,
+                            device=k.device)
+        valid[:, :s] = True
+        return {"k": F.pad(k, (0, 0, 0, 0, 0, pad)),
+                "v": F.pad(v, (0, 0, 0, 0, 0, pad)),
+                "pos": F.pad(positions, (0, pad)).to(torch.int32),
+                "valid": valid}
+    # ring: slot j holds the latest position p <= s-1 with p % window == j
+    j = np.arange(window)
+    src = np.clip(j + window * ((s - 1 - j) // window), 0, s - 1)
+    filled = torch.from_numpy(src >= max(0, s - window)).to(k.device)
+    take = torch.from_numpy(src).to(k.device)
+    return {"k": k[:, take], "v": v[:, take],
+            "pos": positions[:, take].to(torch.int32),
+            "valid": filled.expand(b, window).clone()}
+
+
+def _run_sublayer(params_i, cfg: ArchConfig, kind: str, h, *, inv_freq,
+                  positions, cache, cache_index, mode: str, cache_len: int,
+                  ssd_scan_impl, cache_write_mask, paged_table):
+    """One sublayer. Returns (h, aux, cache or None); decode updates the
+    cache in place."""
+    if kind in _ATTN:
+        window = cfg.sublayer_window(kind)
+        if mode == "decode":
+            # only full-attention sublayers page (a sliding window is a
+            # bounded per-slot ring already)
+            return blocks.attn_layer_apply(
+                params_i, cfg, h, window=window, inv_freq=inv_freq,
+                positions=positions, cache=cache, cache_index=cache_index,
+                cache_write_mask=cache_write_mask,
+                paged_table=paged_table if window is None else None)
+        h, aux, kv = blocks.attn_layer_apply(
+            params_i, cfg, h, window=window, inv_freq=inv_freq,
+            positions=positions, return_kv=mode == "prefill")
+        return h, aux, (None if kv is None else
+                        _kv_to_cache(kv, positions, window, cache_len))
+    if mode == "decode":
+        h, aux, new = blocks.ssm_layer_apply(params_i, cfg, h, state=cache,
+                                             token_mask=cache_write_mask)
+        for name in cache:
+            cache[name].copy_(new[name])
+        return h, aux, cache
+    return blocks.ssm_layer_apply(params_i, cfg, h, scan_impl=ssd_scan_impl,
+                                  return_state=mode == "prefill")
+
+
+def backbone_apply(params, cfg: ArchConfig, h, *, mode: str = "train",
+                   caches=None, cache_index=None, positions=None,
+                   enc_h=None, remat: bool = True, ssd_scan_impl=None,
+                   prefill_cache_len=None, cache_write_mask=None,
+                   paged_table=None, tp_axis=None):
+    """Run the backbone. h: (b, s, d) hidden states (already embedded or
+    projected).
+
+    mode: "train" | "prefill" | "decode". remat=True recomputes each
+        group in the training backward (`torch.utils.checkpoint`, same
+        math).
+    positions: (b, s) absolute positions; default 0..s-1, or cache_index
+        for every token in decode.
+    caches, cache_index: decode state (`init_decode_caches`), updated in
+        place. Serving passes cache_index=None with explicit positions:
+        each token inserts at its own position.
+    cache_write_mask: (b, s) bool; tokens whose cache and state writes
+        are exact no-ops (inactive slots, padded chunk tails).
+    paged_table: (b, max_blocks) block tables; full-attention caches are
+        then shared block pools (`repro_torch.serving.cache`).
+    prefill_cache_len: the slots of prefill's full-attention caches
+        (default s).
+    Returns dict(h=..., aux=..., caches=...): the prefill caches, the
+    updated decode caches, or None."""
+    _check_family(cfg)
+    if enc_h is not None:
+        raise NotImplementedError("encoder and image states (enc_h) are not "
+                                  "ported (ROADMAP A13)")
+    if tp_axis is not None:
+        raise NotImplementedError(f"backbone_apply(tp_axis={tp_axis!r}): "
+                                  f"tensor parallelism is not ported "
+                                  f"(ROADMAP A12)")
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode {mode!r}")
+    if mode == "decode" and caches is None:
+        raise ValueError("decode needs caches")
     pattern = cfg.group_pattern
+    b, s, _ = h.shape
+    if positions is None and mode == "decode":
+        if cache_index is None:
+            raise ValueError("decode needs positions or cache_index")
+        positions = torch.full((b, s), int(cache_index), device=h.device)
+    cache_len = prefill_cache_len if prefill_cache_len is not None else s
     inv_freq = (nn.rope_frequencies(cfg.resolved_head_dim,
                                     base=cfg.rope_base, device=h.device)
                 if any(kind in _ATTN for kind in pattern) else None)
 
-    def group_body(h, params_g):
+    def group_body(h, params_g, caches_g):
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        new = {}
         for i, kind in enumerate(pattern):
-            h, aux_i = _run_sublayer(params_g[f"sub{i}"], cfg, kind, h,
-                                     inv_freq)
+            h, aux_i, new_i = _run_sublayer(
+                params_g[f"sub{i}"], cfg, kind, h, inv_freq=inv_freq,
+                positions=positions,
+                cache=None if caches_g is None else caches_g[f"sub{i}"],
+                cache_index=cache_index, mode=mode, cache_len=cache_len,
+                ssd_scan_impl=ssd_scan_impl,
+                cache_write_mask=cache_write_mask, paged_table=paged_table)
             aux = aux + aux_i
-        return h, aux
+            if new_i is not None:
+                new[f"sub{i}"] = new_i
+        return h, aux, new
 
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    prefilled = []
     for g in range(cfg.n_groups_stack):
         params_g = tree_index(params["groups"], g)
-        if remat and torch.is_grad_enabled():
-            h, aux_g = checkpoint(group_body, h, params_g,
-                                  use_reentrant=False)
+        caches_g = tree_index(caches, g) if mode == "decode" else None
+        if mode == "train" and remat and torch.is_grad_enabled():
+            h, aux_g, _ = checkpoint(group_body, h, params_g, None,
+                                     use_reentrant=False)
         else:
-            h, aux_g = group_body(h, params_g)
+            h, aux_g, new = group_body(h, params_g, caches_g)
+            prefilled.append(new)
         aux = aux + aux_g
     h = blocks._norm_apply(cfg, params["final_norm"], h)
-    return {"h": h, "aux": aux, "caches": None}
+    if mode == "prefill":
+        caches = tree_stack(prefilled)
+    return {"h": h, "aux": aux, "caches": None if mode == "train" else caches}

@@ -1,8 +1,9 @@
 """Sublayer blocks composed by the grouped backbone (port of
-`repro.models.blocks` for the `dense` and `ssm` families, training
-path).
+`repro.models.blocks` for the `dense` and `ssm` families).
 
-Each block is (init, apply) over a full residual sublayer. The MoE
+Each block is (init, apply) over a full residual sublayer; `apply`
+takes an optional cache or state and returns (h, aux, new cache, state
+or k/v), so the backbone treats train, prefill and decode alike. The MoE
 feed-forward, cross-attention and LayerNorm (whisper) variants wait for
 their families (ROADMAP A13).
 """
@@ -56,18 +57,30 @@ def attn_layer_init(generator: torch.Generator, cfg: ArchConfig):
     }
 
 
-def attn_layer_apply(params, cfg: ArchConfig, h, *, window, inv_freq):
-    """Returns (h, aux): the causal self-attention sublayer, then the
-    dense feed-forward, each residual, on the training path."""
+def attn_layer_apply(params, cfg: ArchConfig, h, *, window, inv_freq,
+                     positions=None, causal: bool = True, cache=None,
+                     cache_index=None, cache_write_mask=None,
+                     paged_table=None, return_kv: bool = False):
+    """Returns (h, aux, new cache or k/v or None): the self-attention
+    sublayer, then the dense feed-forward, each residual. The cache
+    arguments select attention's serving paths (`nn.attention_apply`)."""
     _refuse_moe(cfg)
     x = _norm_apply(cfg, params["ln_attn"], h)
-    h = h + nn.attention_apply(
+    out = nn.attention_apply(
         params["attn"], x, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-        inv_freq=inv_freq, window=window, qk_norm=cfg.qk_norm,
+        inv_freq=inv_freq, q_positions=positions, causal=causal,
+        window=window, qk_norm=cfg.qk_norm, cache=cache,
+        cache_index=cache_index, cache_write_mask=cache_write_mask,
+        paged_table=paged_table, return_kv=return_kv,
         flash_repeat_kv=cfg.flash_repeat_kv)
+    if cache is not None or return_kv:
+        attn_out, new_cache = out
+    else:
+        attn_out, new_cache = out, None
+    h = h + attn_out
     x = _norm_apply(cfg, params["ln_ff"], h)
     h = h + nn.mlp_apply(params["ff"], x)
-    return h, torch.zeros((), dtype=torch.float32, device=h.device)
+    return h, torch.zeros((), dtype=torch.float32, device=h.device), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -84,11 +97,22 @@ def ssm_layer_init(generator: torch.Generator, cfg: ArchConfig):
     }
 
 
-def ssm_layer_apply(params, cfg: ArchConfig, h):
-    """Returns (h, aux): the residual sublayer on the training path."""
+def ssm_layer_apply(params, cfg: ArchConfig, h, *, state=None,
+                    token_mask=None, scan_impl=None,
+                    return_state: bool = False):
+    """Returns (h, aux, new state or None): the residual Mamba-2
+    sublayer (`nn.ssd_mixer_apply` for state, token_mask and
+    return_state)."""
     s = cfg.ssm
     x = rmsnorm_apply(params["ln"], h, eps=cfg.norm_eps)
-    mixed = nn.ssd_mixer_apply(
+    out = nn.ssd_mixer_apply(
         params["mixer"], x, d_state=s.d_state, head_dim=s.head_dim,
-        expand=s.expand, n_groups=s.n_groups, chunk=s.chunk)
-    return h + mixed, torch.zeros((), dtype=torch.float32, device=h.device)
+        expand=s.expand, n_groups=s.n_groups, chunk=s.chunk, state=state,
+        token_mask=token_mask, scan_impl=scan_impl,
+        return_state=return_state)
+    if state is not None or return_state:
+        mixed, new_state = out
+    else:
+        mixed, new_state = out, None
+    return (h + mixed, torch.zeros((), dtype=torch.float32, device=h.device),
+            new_state)

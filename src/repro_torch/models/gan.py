@@ -2,18 +2,16 @@
 `ssm` families):
 
   Generator      noise z (b, s, d_z) --z_proj--> backbone --out_proj-->
-                 synthetic embedding sequence (b, s, d_model). It also
-                 carries an embedding table and an lm_head (the LM mode
-                 of serving); GAN training does not use them, but they
-                 are kept so that parameter counts, uplink bits and the
-                 tree match the JAX package.
+                 synthetic embedding sequence (b, s, d_model). The same
+                 parameters carry an embedding table and an lm_head, so
+                 the generator also serves as a causal LM
+                 (`generator_lm_apply`: train, prefill and decode).
 
   Discriminator  embedding sequence --in_proj--> backbone --mean-pool-->
                  scalar real/fake logit. Real token data enters through
                  the discriminator's own embedding table.
 
-Conditioned families (encoder-decoder, vision) and the LM mode wait for
-ROADMAP A13 and A14.
+Conditioned families (encoder-decoder, vision) wait for ROADMAP A13.
 
 Also the minimal MLP-GAN (`mlp_gan_init`, `mlp_gan_spec`): the
 dispatch-bound model of the JAX package's `benchmarks/driver_bench.py`.
@@ -61,6 +59,32 @@ def generator_apply(params, cfg: ArchConfig, z, *, remat: bool = True):
                          remat=remat)
     fake = out["h"] @ params["out_proj"].to(h.dtype)
     return fake, out["aux"]
+
+
+def generator_lm_init(generator: torch.Generator, cfg: ArchConfig):
+    return generator_init(generator, cfg)
+
+
+def generator_lm_apply(params, cfg: ArchConfig, tokens, *,
+                       mode: str = "train", caches=None, cache_index=None,
+                       positions=None, cache_write_mask=None,
+                       paged_table=None, enc_feats=None, remat: bool = True,
+                       prefill_cache_len=None, tp_axis=None):
+    """LM mode: tokens (b, s) -> {"logits" (b, s, vocab), "aux",
+    "caches"}. Serving's prefill and decode conventions (any-position
+    decode, chunked prefill, paged caches) are `backbone_apply`'s."""
+    if enc_feats is not None:
+        raise NotImplementedError(f"{cfg.name}: encoder and image features "
+                                  f"(enc_feats) are not ported (ROADMAP A13)")
+    h = nn.embedding_apply(params["embed"], tokens)
+    out = backbone_apply(params["backbone"], cfg, h, mode=mode,
+                         caches=caches, cache_index=cache_index,
+                         positions=positions, remat=remat,
+                         prefill_cache_len=prefill_cache_len,
+                         cache_write_mask=cache_write_mask,
+                         paged_table=paged_table, tp_axis=tp_axis)
+    logits = out["h"] @ params["lm_head"].to(out["h"].dtype)
+    return {"logits": logits, "aux": out["aux"], "caches": out["caches"]}
 
 
 # ---------------------------------------------------------------------------

@@ -12,8 +12,8 @@ the group into the query-length axis, so k and v are never repeated.
 Masking is positional: causal and sliding window, computed per block
 from integer positions. Keys are padded to a multiple of the 512-key
 block with position INT32_MAX and marked invalid, as in the JAX
-package (the serving callers' own key-validity masks are not ported,
-ROADMAP A14).
+package. The JAX package's key-validity argument is left out: attention
+takes the flash path only without a cache, where no key is invalid.
 
 `repro_torch.kernels.flash_attn` holds the Hopper kernel of the forward;
 its autograd Function back-propagates through `flash_backward`.

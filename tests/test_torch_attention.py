@@ -343,13 +343,30 @@ def test_flash_branch_starts_at_the_same_length_as_jax(monkeypatch):
 
 
 def test_attention_and_mlp_refuse_what_is_not_ported():
+    """The serving arguments, once refused, now give JAX's values (their
+    cache paths: tests/test_torch_serving.py); the flash path still
+    takes only self-attention at positions 0..s-1, and tensor
+    parallelism (A12) stays refused."""
     jparams, x, kw, _ = attention_case(8, False)
     tparams = interop.to_torch(jparams, "cpu")
     tx = torch.tensor(x)
-    for serving in (dict(cache={}), dict(kv_x=tx), dict(return_kv=True),
-                    dict(q_positions=torch.zeros(2, 8))):
-        with pytest.raises(NotImplementedError, match="A14"):
-            attention.attention_apply(tparams, tx, **kw, **serving)
+    pos = np.array([[3, 1, 4, 1, 5, 9, 2, 6], [0, 1, 2, 3, 4, 5, 6, 7]])
+    enc = normals(2, 5, 64, seed=4)
+    for jserving, tserving in (
+            (dict(kv_x=jnp.asarray(enc)), dict(kv_x=torch.tensor(enc))),
+            (dict(return_kv=True), dict(return_kv=True)),
+            (dict(q_positions=jnp.asarray(pos)),
+             dict(q_positions=torch.tensor(pos)))):
+        want = jattention.attention_apply(jparams, jnp.asarray(x), **kw,
+                                          **jserving)
+        got = attention.attention_apply(tparams, tx, **kw, **tserving)
+        for g, w in zip(tree_leaves(got), jax.tree_util.tree_leaves(want)):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6,
+                                       atol=1e-6)
+    x520 = torch.tensor(attention_case(520, False)[1][:1])
+    with pytest.raises(NotImplementedError, match="flash path"):
+        attention.attention_apply(tparams, x520, **kw,
+                                  q_positions=torch.arange(520)[None])
     with pytest.raises(NotImplementedError, match="A12"):
         attention.attention_apply({"wqkv": None}, tx, **kw)
     with pytest.raises(NotImplementedError, match="A12"):
@@ -360,7 +377,6 @@ def test_attention_and_mlp_refuse_what_is_not_ported():
         mlp.mlp_apply({"w_inga": None}, tx)
     with pytest.raises(NotImplementedError, match="A12"):
         mlp.mlp_apply({"w_in": None}, tx, tp_axis="model")
-    x520 = torch.tensor(attention_case(520, False)[1][:1])
     with pytest.raises(NotImplementedError, match="A12"):
         attention.attention_apply(tparams, x520, flash_repeat_kv=True, **kw)
 

@@ -24,6 +24,7 @@ from repro.core import protocol as jprotocol
 from repro.core.engine import Trainer as JaxTrainer
 from repro.data import synthetic as jsynthetic
 from repro.metrics import fid as jfid
+from repro.models import backbone as jbackbone
 from repro.models import gan as jgan
 from repro.models import specs as jspecs
 from repro_torch import interop
@@ -187,12 +188,26 @@ def test_backbone_refuses_what_is_not_ported():
             tbackbone.backbone_init(torch.Generator(), cfg)
         with pytest.raises(NotImplementedError, match="A13"):
             tgan.gan_init(torch.Generator(), cfg)
+    # prefill, once refused, gives JAX's hidden states and decode state;
+    # encoder states (A13) and tensor parallelism (A12) stay refused
     params = tbackbone.backbone_init(torch.Generator().manual_seed(0), TCFG)
-    h = torch.zeros((1, 4, TCFG.d_model))
-    with pytest.raises(NotImplementedError, match="A14"):
-        tbackbone.backbone_apply(params, TCFG, h, mode="prefill")
-    with pytest.raises(NotImplementedError, match="A14"):
-        tbackbone.backbone_apply(params, TCFG, h, caches={})
+    h = np.random.default_rng(2).standard_normal(
+        (1, 4, TCFG.d_model)).astype(np.float32)
+    want = jbackbone.backbone_apply(
+        jax.tree_util.tree_map(jnp.asarray, interop.to_numpy(params)), JCFG,
+        jnp.asarray(h), mode="prefill")
+    got = tbackbone.backbone_apply(params, TCFG, torch.tensor(h),
+                                   mode="prefill")
+    for g, w in zip(tree_leaves({"h": got["h"], "c": got["caches"]}),
+                    jax.tree_util.tree_leaves({"h": want["h"],
+                                               "c": want["caches"]})):
+        np.testing.assert_allclose(g.detach().numpy(), np.asarray(w),
+                                   rtol=1e-5, atol=1e-5)
+    th = torch.tensor(h)
+    with pytest.raises(NotImplementedError, match="A13"):
+        tbackbone.backbone_apply(params, TCFG, th, enc_h=th)
+    with pytest.raises(NotImplementedError, match="A12"):
+        tbackbone.backbone_apply(params, TCFG, th, tp_axis="model")
 
 
 def jax_draws(tpcfg, n_params):

@@ -209,12 +209,28 @@ def test_mixer_forward_and_gradients_match_jax(scan):
 
 
 def test_mixer_refuses_the_serving_paths():
+    """return_state (prefill), once refused, gives JAX's decode state;
+    below d_conv - 1 tokens it raises, where the JAX package's conv tail
+    would come out shorter than the cache (`repro/nn/ssm.py:247`)."""
     params = ssm.ssd_mixer_init(torch.Generator().manual_seed(0), 32,
                                 d_state=8, head_dim=16)
-    x = torch.zeros(1, 4, 32)
-    with pytest.raises(NotImplementedError, match="A14"):
-        ssm.ssd_mixer_apply(params, x, d_state=8, head_dim=16,
-                            return_state=True)
+    kw = dict(d_state=8, head_dim=16)
+    x = np.random.default_rng(1).standard_normal((1, 4, 32)).astype(
+        np.float32)
+    jy, jstate = jssm.ssd_mixer_apply(
+        jax.tree_util.tree_map(jnp.asarray, interop.to_numpy(params)),
+        jnp.asarray(x), return_state=True, **kw)
+    ty, tstate = ssm.ssd_mixer_apply(params, torch.tensor(x),
+                                     return_state=True, **kw)
+    np.testing.assert_allclose(ty.detach().numpy(), np.asarray(jy),
+                               rtol=1e-5, atol=1e-5)
+    for name in ("ssm", "conv"):
+        np.testing.assert_allclose(tstate[name].detach().numpy(),
+                                   np.asarray(jstate[name]), rtol=1e-5,
+                                   atol=1e-5)
+    with pytest.raises(ValueError, match="d_conv - 1 = 3"):
+        ssm.ssd_mixer_apply(params, torch.tensor(x[:, :2]),
+                            return_state=True, **kw)
 
 
 # The reference's NaN-gradient trap: at chunk 128, dt = 0.05 and A = -16
