@@ -9,6 +9,8 @@
     python3 chip_smoke.py --allocator-ab # phases 1-2, then host-driver
                                          # rounds with the allocator's
                                          # expandable segments off and on
+    python3 chip_smoke.py --tp-only      # phases 1-2, then phase 10 with
+                                         # its own tp=1 serving reference
 
 Phases, in order; any failure exits non-zero:
   1. device   the card's name and power limit (nvidia-smi); TF32 off for
@@ -194,6 +196,36 @@ Phases, in order; any failure exits non-zero:
                  paged = dense tokens, the first sampled position's
                  logits against the full forward at rtol 1e-4
               The "serving" path's launches are the mode="prefill" calls'.
+  10. tp     tensor parallelism (TP=2), gloo ranks sharing the card,
+              each model group a Megatron feed-forward; first flash_attn
+              with k/v repeated to KV = H (flash_repeat_kv) at D 64 and
+              128 against its plain version (comparison launches):
+              a. the MLP-GAN (K=4 workers x TP=2 = 8 ranks), proposed
+                 and FedGAN, serial and parallel, host and fused mesh
+                 drivers, 3 rounds each, 16-bit uplink, SGD, fading off,
+                 against the stacked tp=1 runs of the same seed: masks,
+                 weights and the wallclock bit for bit, metrics within
+                 1e-4 relative, the gathered parameters within 1e-5
+                 (one quantization step more on the quantized nets);
+                 the per-rank Algorithm-2 payload (`tp_local_size`)
+                 beside tp=1's; 1 wavg launch a rank a round
+              b. granite-3-2b at full width, 2 of its 40 layers, K=2 x
+                 TP=2 = 4 ranks, m=4, seq_len 1024, SGD, 2 serial
+                 rounds on the host driver, against the stacked tp=1
+                 K=2 run of the same seed (run first here, then freed):
+                 as a, and half-width MLP leaves on every rank; per
+                 rank and round 1 wavg and 20 flash_attn launches; peak
+                 memory a rank and seconds a round; wavg timed at the
+                 1/TP payload beside the whole one
+              c. granite-3-2b at full depth served at TP=2 on 2 ranks,
+                 loaded from a global-shaped checkpoint written here (as
+                 `launch.serve` loads one), 9a's greedy requests through
+                 the paged and the dense engine (uncaptured: gloo): each
+                 request's tokens 9a's up to 9a's first near tie, on
+                 both ranks, handed out by rank 0 alone; the decode-only
+                 step beside 9a's; no kernel launch in the engines
+              The "tp" path's launches are a's and b's, summed over
+              the ranks.
 The last two lines are the `kernels` JSON line and
 {"ok": true, "device": {...}}.
 """
@@ -3479,7 +3511,8 @@ def serve_granite(torch, kernel_mods, out):
           f"{prof['top_kernels_ms']}")
     greedy_work = [(work[rid][0], work[rid][1]) for rid in greedy]
     greedy_tokens = [paged["tokens"][rid] for rid in greedy]
-    return engine, greedy_work, greedy_tokens, flash
+    return (engine, greedy_work, greedy_tokens, [ties[rid] for rid in greedy],
+            flash)
 
 
 def profile_decode(torch, engine, vocab, n_steps=3):
@@ -3686,10 +3719,12 @@ def serve_frontend(torch, engine, greedy_work, greedy_tokens):
 def serve_phase(torch, card, kernel_mods, mamba_gen):
     """Phase 9 on `card`. Returns the "serving" path's launches by
     kernel: the mode="prefill" calls' (9a's flash_attn, 9b's ssd_scan);
-    the engines launch none."""
+    the engines launch none; and what phase 10c serves again at tp=2:
+    9a's greedy requests, their tokens and first near ties, and 9a's
+    decode-only step ms, replayed and uncaptured."""
     import tempfile
     out = {}
-    engine, greedy_work, greedy_tokens, flash = serve_granite(
+    engine, greedy_work, greedy_tokens, greedy_ties, flash = serve_granite(
         torch, kernel_mods, out)
     stamp("serving: granite-3-2b")
     serve_frontend(torch, engine, greedy_work, greedy_tokens)
@@ -3709,7 +3744,660 @@ def serve_phase(torch, card, kernel_mods, mamba_gen):
     stamp("serving: gemma3-12b")
     print(f"serving phase on {card}")
     print(json.dumps({"serving": out}, default=float))
-    return {"flash_attn": flash, "ssd_scan": ssd}
+    granite = out["granite-3-2b"]
+    return ({"flash_attn": flash, "ssd_scan": ssd},
+            (greedy_work, greedy_tokens, greedy_ties,
+             {"replayed": granite["decode_step_ms"],
+              "uncaptured": granite["uncaptured_decode_step_ms"]}))
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: tensor parallelism
+# ---------------------------------------------------------------------------
+
+TP = 2
+# 10a: phase 7's MLP-GAN (d_z 8, 16 hidden, 64-dim data, m=M=4, 16-bit
+# uplink, SGD, round_robin at 0.5) on K = 4 workers of TP model ranks:
+# 8 gloo ranks share the card. Every algorithm x schedule x mesh driver.
+TP_MLP = dict(k=4, rounds=3, d_z=8, d_hidden=16, d_data=64, n_local=8)
+TP_MLP_RUNS = tuple((algorithm, schedule, driver)
+                    for algorithm in ("proposed", "fedgan")
+                    for schedule in ("serial", "parallel")
+                    for driver in ("host", "fused"))
+# 10b: granite-3-2b at full width, 2 of its 40 layers, K = 2 workers of
+# TP ranks (4 ranks), m = 4 sequences of 1,024 tokens, n_d = n_g = 2,
+# 16-bit uplink, SGD at 1e-3 (the paper's optimizer; Adam's first step
+# would move an element whose gradient is round-off by up to its
+# learning rate, which no tolerance on the TP arithmetic could name).
+# sizes: the worker's global (G, D) parameters; per_round: flash_attn
+# launches a rank a round (launches_per_round at K = 1).
+TP_GRANITE = dict(arch="granite-3-2b", k=2, n_d=2, n_g=2, m=4, seq=1024,
+                  layers=2, rounds=2, sizes=(327_440_384, 226_510_848),
+                  per_round=20)
+TP_PARAM_ATOL = 1e-5      # parameters: f32 round-off of the w_out sums ...
+TP_METRIC_RTOL = 1e-4     # ... objectives, relative (JAX's tp test: 1e-4)
+
+
+def _tp_mlp_trainer(run, data, device, tp):
+    """10a's Trainer of `run` (algorithm, schedule, driver): the stacked
+    layout at tp=1, the mesh layout at tp > 1."""
+    from repro_torch.configs import ProtocolConfig
+    from repro_torch.core import Trainer
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.models import gan
+    algorithm, schedule, driver = run
+    s = TP_MLP
+    pcfg = ProtocolConfig(n_devices=s["k"], n_d=1, n_g=1, sample_size=4,
+                          server_sample_size=4, lr_d=1e-3, lr_g=1e-3,
+                          schedule=schedule, scheduler="round_robin",
+                          scheduling_ratio=0.5)
+    return Trainer(
+        gan.mlp_gan_spec(d_z=s["d_z"], tp_axis="model" if tp > 1 else None),
+        pcfg, lambda g: gan.mlp_gan_init(g, d_z=s["d_z"],
+                                         d_hidden=s["d_hidden"],
+                                         d_data=s["d_data"]),
+        data, seed=0, algorithm=algorithm, driver=driver, device=device,
+        layout="mesh" if tp > 1 else "stacked", tp=tp,
+        channel_cfg=ChannelConfig(n_devices=s["k"], fading=False))
+
+
+def tp_mlp_rank(data, rank, world_size, device):
+    """10a on one rank: every run of TP_MLP_RUNS through
+    `Trainer(layout="mesh", tp=TP)`, the wavg count set to 0 just before
+    the path and read around every round. Returns ([per run: rounds,
+    the gathered global state, the rank's payload elements], wavg
+    launches)."""
+    _rank_torch()
+    from repro_torch.kernels.wavg import ops as wavg_ops
+    from repro_torch.tree import tree_leaves
+    wavg_ops.launches = 0                          # the path starts here
+    out = []
+    for run in TP_MLP_RUNS:
+        trainer = _tp_mlp_trainer(run, data, device, TP)
+        local = sum(x.numel() for x in
+                    tree_leaves(trainer._algo.payload(trainer.state)))
+        rounds = []
+        for _ in range(TP_MLP["rounds"]):
+            before = wavg_ops.launches
+            rec = trainer.run(1)[-1]
+            rounds.append(dict(mask=rec.mask, weights=rec.weights,
+                               wall=rec.wallclock_s, metrics=rec.metrics,
+                               wavg=wavg_ops.launches - before))
+        out.append(dict(rounds=rounds, state=trainer._global_state(),
+                        local=local))
+    return out, wavg_ops.launches                  # ... and ends here
+
+
+def _tp_diff(torch, got, want, quantized, bits=16):
+    """Max |got - want| over a state entry, less one quantization step
+    of the leaf (its global abs-max / levels) on a quantized net; and
+    the raw max."""
+    from repro_torch.tree import tree_leaves
+    worst, raw = 0.0, 0.0
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        a = torch.as_tensor(a).float().cpu()
+        b = torch.as_tensor(b).float().cpu()
+        d = float((a - b).abs().max()) if a.numel() else 0.0
+        step = (float(b.abs().max()) / (2 ** (bits - 1) - 1)
+                if quantized and b.numel() else 0.0)
+        worst, raw = max(worst, d - step), max(raw, d)
+    return worst, raw
+
+
+def tp_mlp_phase(torch):
+    """10a: 8 gloo ranks (K=4 x TP=2) on the card, each run of
+    TP_MLP_RUNS against the stacked tp=1 Trainer of the same seed and
+    driver (fading off): masks, weights and the wallclock bit for bit,
+    metrics within TP_METRIC_RTOL, the gathered parameters within
+    TP_PARAM_ATOL (plus one quantization step on the quantized nets);
+    the per-rank Algorithm-2 payload (`tp_local_size`) against tp=1's;
+    1 wavg launch a rank a round. Returns its summary."""
+    import numpy as np
+    from repro_torch.core import protocol
+    from repro_torch.launch import mesh
+    from repro_torch.sharding import rules
+    s = TP_MLP
+    data = np.tanh(np.random.default_rng(9).standard_normal(
+        (s["k"], s["n_local"], s["d_data"]))).astype(np.float32)
+    world = s["k"] * TP
+    t0 = time.perf_counter()
+    per_rank = mesh.spawn(functools.partial(tp_mlp_rank, data), world,
+                          backend="gloo", timeout_s=600, tp=TP)
+    secs = time.perf_counter() - t0
+    summary = {"ranks": world, "seconds": secs, "runs": {}}
+    for i, run in enumerate(TP_MLP_RUNS):
+        ref = _tp_mlp_trainer(run, data, "cuda", 1)
+        want = ref.run(s["rounds"])
+        payload = ref._algo.payload(ref.state)
+        full = protocol.count_params(payload)
+        local = rules.tp_local_size(payload, TP)
+        worst = {}
+        for r, (out, _) in enumerate(per_rank):
+            got = out[i]
+            if got["local"] != local:
+                raise AssertionError(f"10a {run} rank {r}: payload "
+                                     f"{got['local']}, tp_local_size "
+                                     f"{local}")
+            for t, (rec, g) in enumerate(zip(want, got["rounds"])):
+                if not (np.array_equal(g["mask"], rec.mask)
+                        and np.array_equal(g["weights"], rec.weights)
+                        and g["wall"] == rec.wallclock_s):
+                    raise AssertionError(
+                        f"10a {run} round {t} rank {r}: mask {g['mask']} "
+                        f"weights {g['weights']} wall {g['wall']!r}, tp=1 "
+                        f"{rec.mask} {rec.weights} {rec.wallclock_s!r}")
+                for key, value in rec.metrics.items():
+                    if abs(g["metrics"][key] - value) > TP_METRIC_RTOL * max(
+                            1.0, abs(value)):
+                        raise AssertionError(f"10a {run} round {t} rank {r} "
+                                             f"{key} {g['metrics'][key]} vs "
+                                             f"{value}")
+                if g["wavg"] != 1:
+                    raise AssertionError(f"10a {run} round {t} rank {r}: "
+                                         f"{g['wavg']} wavg launches")
+            quantized = (("gen", "disc") if run[0] == "fedgan"
+                         else ("disc",))
+            for part in ("gen", "disc"):
+                d, raw = _tp_diff(torch, got["state"][part],
+                                  ref.state[part], part in quantized)
+                worst[part] = max(worst.get(part, 0.0), raw)
+                if d > TP_PARAM_ATOL:
+                    raise AssertionError(f"10a {run} rank {r} {part}: "
+                                         f"{raw} from tp=1")
+        summary["runs"]["/".join(run)] = dict(
+            payload_per_rank=local, payload_tp1=full,
+            max_abs_diff=worst)
+        print(f"10a MLP-GAN {'/'.join(run):24s}: masks, weights and "
+              f"wallclock bitwise tp=1's on all {world} ranks; max |param "
+              f"- tp=1| gen {worst['gen']:.3e} disc {worst['disc']:.3e}; "
+              f"Algorithm-2 payload a rank {local} of tp=1's {full}")
+        del ref
+    launches = sum(c for _, c in per_rank)
+    want_launches = world * len(TP_MLP_RUNS) * s["rounds"]
+    if launches != want_launches:
+        raise AssertionError(f"10a: {launches} wavg launches, expected "
+                             f"{want_launches}")
+    summary["wavg"] = launches
+    print(f"10a: {launches} wavg launches over {world} ranks (1 a rank a "
+          f"round), {secs:.2f} s with process start-up")
+    return summary
+
+
+def _tp_granite_trainer(shards, device, tp):
+    from repro_torch.configs import ProtocolConfig
+    from repro_torch.core import Trainer
+    from repro_torch.models import gan
+    from repro_torch.models.specs import make_backbone_spec
+    bb = TP_GRANITE
+    cfg = backbone_config(bb)
+    pcfg = ProtocolConfig(n_devices=bb["k"], n_d=bb["n_d"], n_g=bb["n_g"],
+                          sample_size=bb["m"], server_sample_size=bb["m"],
+                          lr_d=1e-3, lr_g=1e-3, optimizer="sgd",
+                          schedule="serial", scheduler="all")
+    spec = make_backbone_spec(cfg, bb["seq"], remat=False,
+                              gen_loss_variant="nonsaturating",
+                              tp_axis="model" if tp > 1 else None)
+    return Trainer(spec, pcfg, lambda g: gan.gan_init(g, cfg), shards,
+                   seed=0, driver="host", device=device,
+                   layout="mesh" if tp > 1 else "stacked", tp=tp)
+
+
+def _tp_param_diffs(torch, trainer, reference, r, device):
+    """Per net on this rank: max |shard - tp=1's|, less one quantization
+    step (the leaf's global abs-max / levels) on the discriminator, the
+    quantized upload; and the raw max. `reference` holds tp=1's leaves,
+    one .npy a leaf (`_save_leaves`)."""
+    import numpy as np
+    levels = 2 ** (trainer.pcfg.quantize_bits - 1) - 1
+    out = {}
+    for part in ("gen", "disc"):
+        worst = raw = 0.0
+        for (name, x), d in zip(_named_leaves(trainer.state[part]),
+                                trainer._tp_dims[part]):
+            full = torch.from_numpy(np.load(os.path.join(
+                reference, f"{part}{name.replace('/', '.')}.npy"))).to(device)
+            want = (full if d is None else
+                    full.narrow(d, r * x.shape[d], x.shape[d]))
+            diff = float((x - want).abs().max())
+            step = float(full.abs().max()) / levels if part == "disc" else 0.0
+            worst, raw = max(worst, diff - step), max(raw, diff)
+            del full, want
+        out[part] = (worst, raw)
+    return out
+
+
+def _save_leaves(state, directory):
+    """Every leaf of state["gen"] and state["disc"] as one .npy file."""
+    import numpy as np
+    for part in ("gen", "disc"):
+        for name, x in _named_leaves(state[part]):
+            np.save(os.path.join(directory,
+                                 f"{part}{name.replace('/', '.')}.npy"),
+                    x.detach().cpu().numpy())
+
+
+def tp_granite_rank(shards, reference, serve_dir, work, rank, world_size,
+                    device):
+    """10b, then 10c, on one rank. 10b: TP_GRANITE's rounds through
+    `Trainer(layout="mesh", tp=TP)`, the wavg and flash_attn counts set
+    to 0 just before the path; the MLP leaves' shard shapes, each
+    round's record, seconds and launches, the peak device memory, and
+    the shards against tp=1's (`_tp_param_diffs`). 10c, on worker 0's
+    model group once its trainer is freed: `tp_serve`; worker 1's ranks
+    are done."""
+    torch = _rank_torch()
+    import torch.distributed as dist
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+    from repro_torch.kernels.wavg import ops as wavg_ops
+    from repro_torch.launch import mesh
+    k = dist.get_rank(mesh.axis_group("data"))
+    r = dist.get_rank(mesh.axis_group("model"))
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = _tp_granite_trainer(shards, device, TP)
+    ff = trainer.state["disc"]["backbone"]["groups"]["sub0"]["ff"]
+    out = dict(shapes={n: tuple(v.shape) for n, v in ff.items()},
+               init_s=time.perf_counter() - t0)
+    flash_ops.launches = wavg_ops.launches = 0     # the path starts here
+    rounds = []
+    for _ in range(TP_GRANITE["rounds"]):
+        before = (wavg_ops.launches, flash_ops.launches)
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        rec = trainer.run(1)[-1]
+        torch.cuda.synchronize()
+        rounds.append(dict(mask=rec.mask, weights=rec.weights,
+                           wall=rec.wallclock_s, metrics=rec.metrics,
+                           secs=time.perf_counter() - t0,
+                           launches=(wavg_ops.launches - before[0],
+                                     flash_ops.launches - before[1])))
+    out["counts"] = (wavg_ops.launches, flash_ops.launches)  # ... ends here
+    out["rounds"] = rounds
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    out["diffs"] = _tp_param_diffs(torch, trainer, reference, r, device)
+    out["compare_s"] = time.perf_counter() - t0
+    del trainer, rec
+    torch.cuda.empty_cache()
+    if k == 0:
+        out["serve"] = tp_serve(torch, serve_dir, work, device)
+    return out
+
+
+def time_wavg_tp(torch, wavg_ops, n_full, n_local):
+    """wavg at K=2 on the worker's whole payload and on its 1/TP shard:
+    kernel, plain and w @ x ms beside the HBM bound."""
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for label, n in (("tp1", n_full), ("tp2", n_local)):
+        xs = [(torch.randn((2, n), generator=gen, device="cuda"),
+               torch.full((2,), 0.5, device="cuda")) for _ in range(2)]
+        got = wavg_ops.weighted_average(*xs[0])
+        torch.testing.assert_close(got, wavg_ops.wavg_ref(*xs[0]),
+                                   rtol=RTOL, atol=ATOL)
+        n_bytes = (2 * n + 2 + n) * 4
+        out[label] = dict(
+            k=2, n=n, ms=time_ms(wavg_ops.weighted_average, xs),
+            plain_ms=time_ms(wavg_ops.wavg_ref, xs),
+            library_ms=time_ms(lambda x, w: torch.matmul(w, x), xs),
+            bound_ms=max(n_bytes / HBM_BYTES_PER_S,
+                         4 * n / F32_FLOPS_PER_S) * 1e3)
+        del xs, got
+    return out
+
+
+def _named_leaves(tree, prefix=""):
+    """(path, leaf) pairs of a tree in leaf order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in _named_leaves(tree[k], f"{prefix}/{k}")]
+    return [(prefix, tree)]
+
+
+def tp_serve(torch, directory, work, device):
+    """10c on one rank of worker 0's model group: the generator of the
+    global checkpoint in `directory` loaded as `launch.serve` loads it,
+    cut to this rank's shards by `ServingEngine(tp=TP)`, serving `work`
+    through the paged and the dense engine (uncaptured: gloo), every
+    launch count at 0. Returns each engine's tokens (what `run` hands
+    out, and the rank's own), decode-only and prefill ms a step, wall
+    seconds; the load seconds and the peak device memory."""
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+    from repro_torch.kernels.wavg import ops as wavg_ops
+    from repro_torch.launch.serve import load_generator_params
+    from repro_torch.serving import Request, ServingEngine
+    setting = SERVE_GRANITE
+    cfg = backbone_config(setting)
+    t0 = time.perf_counter()
+    params, _ = load_generator_params(directory)
+    out = dict(load_s=time.perf_counter() - t0, engines={})
+    torch.cuda.reset_peak_memory_stats()
+    for label, block in (("paged", setting["block"]), ("dense", None)):
+        eng = ServingEngine(cfg, params, batch_size=setting["batch"],
+                            max_len=setting["max_len"], block_size=block,
+                            prefill_chunk=setting["chunk"], seed=0, tp=TP,
+                            device=device)
+        steps, get = [], eng._get_step
+        eng._get_step = lambda chunk: (steps.append([chunk]), get(chunk))[1]
+        for i, (p, n) in enumerate(work):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=n))
+        flash_ops.launches = wavg_ops.launches = 0
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        while eng.queue or any(s is not None for s in eng.slots):
+            t2 = time.perf_counter()
+            if not eng.step():
+                raise AssertionError("the engine stalled")
+            steps[-1].append(time.perf_counter() - t2)
+        wall = time.perf_counter() - t1
+        if flash_ops.launches or wavg_ops.launches:
+            raise AssertionError("hand-written kernels inside the engine")
+        handed = eng.run()
+        prefill = [secs * 1e3 for chunk, secs in steps if chunk is not None]
+        out["engines"][label] = dict(
+            handed={q.rid: list(q.out_tokens) for q in handed},
+            own={q.rid: list(q.out_tokens) for q in eng.finished},
+            decode_ms=decode_only_ms(steps),
+            prefill_ms=(statistics.mean(prefill), len(prefill)),
+            first_step_s=steps[0][1], wall=wall,
+            w_out=tuple(eng.params["backbone"]["groups"]["sub0"]["ff"]
+                        ["w_out"].shape))
+        del eng
+        torch.cuda.empty_cache()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def tp_granite_phase(torch, wavg_ops, flash_ops, shards, serving_inputs):
+    """10b and 10c in one spawn of 4 gloo ranks (K=2 x TP=2). First, in
+    this process: the stacked tp=1 run of 10b (same seed; phase 5's
+    first two granite token shards), its parameters saved a leaf a file
+    and freed; 9a's generator (seed 0) written as a global-shaped
+    checkpoint. 10b: the ranks' masks, weights and wallclock bit for bit
+    tp=1's, objectives within TP_METRIC_RTOL, every rank's shards within
+    TP_PARAM_ATOL of tp=1's (plus one quantization step on the
+    discriminator); half-width MLP leaves; per rank and round 1 wavg and
+    TP_GRANITE["per_round"] flash_attn launches; per-rank peak memory
+    and seconds a round; wavg timed at the 1/TP payload. 10c: worker 0's
+    model group serves 9a's greedy requests, paged and dense, from the
+    checkpoint: each request's tokens 9a's (tp=1) up to 9a's first near
+    tie, on both ranks, and only rank 0 hands them out; the uncaptured
+    decode step beside 9a's."""
+    import tempfile
+    import numpy as np
+    from repro_torch import checkpoint
+    from repro_torch.core import protocol
+    from repro_torch.launch import mesh
+    from repro_torch.models import gan
+    from repro_torch.sharding import rules
+    bb = TP_GRANITE
+    cfg = backbone_config(bb)
+    greedy_work, greedy_tokens, greedy_ties, tp1_decode_ms = serving_inputs
+    ref = _tp_granite_trainer(shards, "cuda", 1)
+    sizes = (protocol.count_params(ref.state["gen"]),
+             protocol.count_params(ref.state["disc"]))
+    if sizes != bb["sizes"]:
+        raise AssertionError(f"10b sizes {sizes}")
+    n_local = rules.tp_local_size(ref.state["disc"], TP)
+    flash_before = flash_ops.launches
+    torch.cuda.reset_peak_memory_stats()
+    want = []
+    for _ in range(bb["rounds"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec = ref.run(1)[-1]
+        torch.cuda.synchronize()
+        want.append((rec, time.perf_counter() - t0))
+    ref_flash = flash_ops.launches - flash_before
+    flash_ops.launches = flash_before        # the reference is no path
+    ref_peak = torch.cuda.max_memory_allocated() / 2**30
+    base = os.path.join(ROOT, "results", "torch")
+    os.makedirs(base, exist_ok=True)
+    reference = tempfile.mkdtemp(prefix="chip_smoke_tp_ref_", dir=base)
+    serve_dir = tempfile.mkdtemp(prefix="chip_smoke_tp_serve_", dir=base)
+    try:
+        _save_leaves(ref.state, reference)
+        del ref, rec
+        torch.cuda.empty_cache()
+        serve_cfg = backbone_config(SERVE_GRANITE)
+        params = gan.generator_init(torch.Generator("cuda").manual_seed(0),
+                                    serve_cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = checkpoint.save_checkpoint(serve_dir, 0,
+                                          {"state": {"gen": params}})
+        write_s = time.perf_counter() - t0
+        ckpt_bytes = os.path.getsize(path)
+        del params
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        per_rank = mesh.spawn(
+            functools.partial(tp_granite_rank, shards, reference, serve_dir,
+                              greedy_work),
+            bb["k"] * TP, backend="gloo", timeout_s=900, tp=TP)
+        secs = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(reference, ignore_errors=True)
+        shutil.rmtree(serve_dir, ignore_errors=True)
+
+    # 10b
+    half = {"w_in": (bb["layers"], cfg.d_model, cfg.d_ff // TP),
+            "w_gate": (bb["layers"], cfg.d_model, cfg.d_ff // TP),
+            "w_out": (bb["layers"], cfg.d_ff // TP, cfg.d_model)}
+    diffs = {"gen": 0.0, "disc": 0.0}
+    for g, out in enumerate(per_rank):
+        if out["shapes"] != half:
+            raise AssertionError(f"10b rank {g} MLP shards {out['shapes']}")
+        for t, ((rec, _), got) in enumerate(zip(want, out["rounds"])):
+            if not (np.array_equal(got["mask"], rec.mask)
+                    and np.array_equal(got["weights"], rec.weights)
+                    and got["wall"] == rec.wallclock_s):
+                raise AssertionError(f"10b round {t} rank {g}: mask, "
+                                     f"weights or wallclock differ")
+            for key, value in rec.metrics.items():
+                if abs(got["metrics"][key] - value) > TP_METRIC_RTOL * max(
+                        1.0, abs(value)):
+                    raise AssertionError(f"10b round {t} rank {g} {key} "
+                                         f"{got['metrics'][key]} vs {value}")
+            if got["launches"] != (1, bb["per_round"]):
+                raise AssertionError(f"10b round {t} rank {g}: (wavg, "
+                                     f"flash_attn) {got['launches']}")
+        for part, (worst, raw) in out["diffs"].items():
+            diffs[part] = max(diffs[part], raw)
+            if worst > TP_PARAM_ATOL:
+                raise AssertionError(f"10b rank {g} {part}: {raw} from "
+                                     f"tp=1")
+    counts = [out["counts"] for out in per_rank]
+    launches = {"wavg": sum(c[0] for c in counts),
+                "flash_attn": sum(c[1] for c in counts)}
+    n_rounds = bb["rounds"] * len(per_rank)
+    if launches != {"wavg": n_rounds,
+                    "flash_attn": n_rounds * bb["per_round"]}:
+        raise AssertionError(f"10b launches {launches}")
+    wavg_tp = time_wavg_tp(torch, wavg_ops, sizes[1], n_local)
+    round_s = [max(out["rounds"][t]["secs"] for out in per_rank)
+               for t in range(bb["rounds"])]
+    granite = dict(
+        layers=bb["layers"], ranks=len(per_rank), sizes=sizes,
+        disc_payload_per_rank=n_local,
+        peak_gib_per_rank=[out["peak_gib"] for out in per_rank],
+        tp1_peak_gib=ref_peak, round_s=round_s,
+        tp1_round_s=[s for _, s in want], tp1_flash_attn=ref_flash,
+        max_abs_diff=diffs, launches=launches,
+        init_s=[out["init_s"] for out in per_rank],
+        compare_s=[out["compare_s"] for out in per_rank],
+        objectives=[got["metrics"] for got in per_rank[0]["rounds"]],
+        tp1_objectives=[rec.metrics for rec, _ in want],
+        wavg_at_1_over_tp=wavg_tp)
+    print(f"10b granite-3-2b ({bb['layers']} of 40 layers, full width, "
+          f"K={bb['k']} x tp={TP} = {len(per_rank)} ranks, seq_len "
+          f"{bb['seq']}, SGD): masks, weights and wallclock bitwise the "
+          f"stacked tp=1 run's; objectives {granite['objectives']} vs "
+          f"{granite['tp1_objectives']}; max |param - tp=1| gen "
+          f"{diffs['gen']:.3e} disc {diffs['disc']:.3e}; MLP leaves "
+          f"half-width on every rank; per rank and round 1 wavg and "
+          f"{bb['per_round']} flash_attn launches; s/round (slowest rank) "
+          f"{[round(x, 3) for x in round_s]} vs tp=1 "
+          f"{[round(x, 3) for x in granite['tp1_round_s']]}; peak GiB a "
+          f"rank {[round(x, 2) for x in granite['peak_gib_per_rank']]} "
+          f"(tp=1 K=2 stacked {ref_peak:.2f}); Algorithm-2 payload a rank "
+          f"{n_local:,} of {sizes[1]:,}; wavg K=2 at the 1/tp payload "
+          f"{wavg_tp['tp2']['ms']:.4f} ms (bound "
+          f"{wavg_tp['tp2']['bound_ms']:.4f}), whole "
+          f"{wavg_tp['tp1']['ms']:.4f} ms (bound "
+          f"{wavg_tp['tp1']['bound_ms']:.4f}); rank set-up "
+          f"{max(granite['init_s']):.2f} s, comparison "
+          f"{max(granite['compare_s']):.2f} s")
+
+    # 10c
+    served = [out["serve"] for out in per_rank if "serve" in out]
+    want_toks = dict(enumerate(greedy_tokens))
+    half = (serve_cfg.n_layers, serve_cfg.d_ff // TP, serve_cfg.d_model)
+    agree = {}
+    for label in ("paged", "dense"):
+        runs = [out["engines"][label] for out in served]
+        if (len(runs) != TP or any(run["handed"] for run in runs[1:])
+                or runs[0]["handed"] != runs[0]["own"]):
+            raise AssertionError(f"10c {label}: rank 0 must hand out the "
+                                 f"requests, the others none")
+        for r, run in enumerate(runs):
+            if run["w_out"] != half:
+                raise AssertionError(f"10c rank {r} w_out {run['w_out']}")
+            for rid, toks in want_toks.items():
+                tie = greedy_ties[rid]
+                got = run["own"][rid]
+                upto = len(toks) if tie is None else tie
+                if got[:upto] != toks[:upto] or len(got) != len(toks):
+                    raise AssertionError(
+                        f"10c {label} rank {r} rid {rid}: {got} vs 9a's "
+                        f"{toks} (first near tie {tie})")
+                agree[f"{label}/{rid}"] = (
+                    sum(a == b for a, b in zip(got, toks)), len(toks))
+    serving = dict(
+        checkpoint_bytes=ckpt_bytes, checkpoint_write_s=write_s,
+        load_s=[out["load_s"] for out in served],
+        peak_gib_per_rank=[out["peak_gib"] for out in served],
+        decode_step_ms={label: max(out["engines"][label]["decode_ms"][0]
+                                   for out in served)
+                        for label in ("paged", "dense")},
+        prefill_step_ms={label: max(out["engines"][label]["prefill_ms"][0]
+                                    for out in served)
+                         for label in ("paged", "dense")},
+        first_step_s={label: max(out["engines"][label]["first_step_s"]
+                                 for out in served)
+                      for label in ("paged", "dense")},
+        tp1_decode_step_ms=tp1_decode_ms,
+        wall_s={label: served[0]["engines"][label]["wall"]
+                for label in ("paged", "dense")},
+        tokens_equal=agree, first_near_tie=dict(enumerate(greedy_ties)))
+    print(f"10c granite-3-2b serving at tp={TP} ({serve_cfg.n_layers} "
+          f"layers, worker 0's 2 gloo ranks, w_out {half} a rank): "
+          f"{len(want_toks)} greedy requests, paged and dense, tokens as "
+          f"9a's tp=1 up to 9a's first near tie "
+          f"{serving['first_near_tie']} (equal tokens of all: "
+          f"{agree}); only rank 0 hands them out; 0 kernel launches in "
+          f"the engines; uncaptured (gloo) decode-only step "
+          f"{serving['decode_step_ms']} ms and prefill step "
+          f"{serving['prefill_step_ms']} ms, first step "
+          f"{serving['first_step_s']} s, vs 9a's tp=1 decode-only step "
+          f"{tp1_decode_ms} ms; global checkpoint "
+          f"{ckpt_bytes / 1e9:.2f} GB written in {write_s:.2f} s, loaded "
+          f"in {[round(x, 2) for x in serving['load_s']]} s a rank; peak "
+          f"GiB a rank {[round(x, 2) for x in serving['peak_gib_per_rank']]}"
+          f"; the spawn (10b and 10c) {secs:.2f} s with process start-up")
+    return granite, serving
+
+
+def check_flash_repeat_kv(torch, flash_ops, flash_ref):
+    """The k/v-repeating flash layout on the card: the kernel with KV = H
+    at granite-3-2b's D 64 (32 heads) and minitron-4b's D 128 (24 heads),
+    against its plain version; and `attention_apply(flash_repeat_kv=
+    True)` against the unrepeated layout at granite's width. These
+    launches compare and are no path's."""
+    from repro_torch.nn import attention
+    before = flash_ops.launches
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    errs = {}
+    for h, kv, d in ((32, 8, 64), (24, 8, 128)):
+        q = torch.randn((1, 1024, h, d), generator=gen, device="cuda")
+        k = torch.randn((1, 1024, kv, d), generator=gen, device="cuda")
+        v = torch.randn((1, 1024, kv, d), generator=gen, device="cuda")
+        kr, vr = (t.repeat_interleave(h // kv, dim=2) for t in (k, v))
+        got = flash_ops.flash_attention(q, kr, vr)
+        want = flash_ref.flash_attention_plain(q, kr, vr)[0]
+        torch.testing.assert_close(got, want, rtol=0, atol=FLASH_ATOL)
+        grouped = flash_ops.flash_attention(q, k, v)
+        errs[f"D{d}"] = (float((got - want).abs().max()),
+                         float((got - grouped).abs().max()))
+    cfg = backbone_config(dict(arch="granite-3-2b", layers=1))
+    params = attention.attention_init(torch.Generator("cuda").manual_seed(4),
+                                      cfg.d_model, cfg.n_heads,
+                                      cfg.n_kv_heads, cfg.resolved_head_dim)
+    x = torch.randn((2, 1024, cfg.d_model), generator=gen, device="cuda")
+    kw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads)
+    with torch.no_grad():
+        rep = attention.attention_apply(params, x, flash_repeat_kv=True,
+                                        **kw)
+        base = attention.attention_apply(params, x, **kw)
+    torch.testing.assert_close(rep, base, rtol=1e-5, atol=1e-5)
+    errs["granite_attention"] = float((rep - base).abs().max())
+    flash_ops.launches = before
+    print(f"flash_attn with k/v repeated to KV = H (flash_repeat_kv): D 64 "
+          f"(H 32) and D 128 (H 24) against the plain version and the "
+          f"grouped layout, and granite-3-2b's attention against the "
+          f"unrepeated layout: max abs err {errs}")
+    return errs
+
+
+def tp_phase(torch, card, wavg_ops, flash_ops, flash_ref, granite_shards,
+             serving_inputs):
+    """Phase 10 on `card`: 10a; 10b and 10c (one spawn) on
+    `granite_shards` (K=2 token shards of 1,024 tokens) and 9a's
+    `serving_inputs`. Returns the "tp" path's launches by kernel (10a's
+    and 10b's, summed over the ranks; 10c's engines launch none)."""
+    torch.cuda.empty_cache()
+    print(f"phase 10 starts with {torch.cuda.memory_allocated() / 2**30:.2f}"
+          f" GiB allocated in this process")
+    out = {"flash_repeat_kv_max_abs_err": check_flash_repeat_kv(
+        torch, flash_ops, flash_ref)}
+    out["mlp_gan"] = tp_mlp_phase(torch)
+    stamp("tp: MLP-GAN")
+    out["granite"], out["serving"] = tp_granite_phase(
+        torch, wavg_ops, flash_ops, granite_shards, serving_inputs)
+    torch.cuda.empty_cache()
+    stamp("tp: granite-3-2b and serving")
+    print(f"tensor-parallel phase on {card}")
+    print(json.dumps({"tp": out}, default=str))
+    return {"wavg": out["mlp_gan"]["wavg"]
+            + out["granite"]["launches"]["wavg"],
+            "flash_attn": out["granite"]["launches"]["flash_attn"]}
+
+
+def tp1_serving_reference(torch, kernel_mods):
+    """`--tp-only`'s stand-in for phase 9a's outputs: 9a's greedy
+    requests through the captured paged engine at tp=1, each held to the
+    full forward up to its first near tie; (work, tokens, ties, the
+    engine's decode-only ms)."""
+    from repro_torch.models import gan
+    setting = SERVE_GRANITE
+    cfg = backbone_config(setting)
+    params = gan.generator_init(torch.Generator("cuda").manual_seed(0), cfg)
+    work = serving_traffic(cfg.vocab, setting)
+    greedy = [rid for rid, (_, _, t) in enumerate(work) if t == 0.0][:4]
+    work = [work[rid] for rid in greedy]
+    eng = serving_engine(torch, cfg, params, setting, paged=True)
+    toks, _, steps, _ = serve_traffic(torch, eng, work, kernel_mods)
+    del eng
+    ties = []
+    for rid, (prompt, _, _) in enumerate(work):
+        ref = teacher_forced(torch, gan, params, cfg, prompt, toks[rid])
+        ties.append(held_until_tie(toks[rid], ref.argmax(-1).tolist(), ref,
+                                   f"granite rid {rid}"))
+    del params
+    torch.cuda.empty_cache()
+    return ([(p, n) for p, n, _ in work], [toks[i] for i in range(len(work))],
+            ties, {"replayed": decode_only_ms(steps)[0]})
 
 
 # ---------------------------------------------------------------------------
@@ -3801,6 +4489,10 @@ def main() -> int:
              "off and on, each in its own process, and stop")
     parser.add_argument("--host-rounds", action="store_true",
                         help=argparse.SUPPRESS)
+    parser.add_argument(
+        "--tp-only", action="store_true",
+        help="after phase 2, run phase 10 alone (with its own tp=1 "
+             "serving reference in place of phase 9a's), and stop")
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -3841,6 +4533,17 @@ def main() -> int:
     print(f"built wavg, trimmed_wavg, ssd_scan, flash_attn and ring_accum in "
           f"{time.perf_counter() - t0:.2f} s")
     stamp("build")
+    if args.tp_only:
+        kernel_mods = {"wavg": ops, "trimmed_wavg": robust_ops,
+                       "ssd_scan": ssd_ops, "flash_attn": flash_ops,
+                       "ring_accum": ring_ops}
+        inputs = tp1_serving_reference(torch, kernel_mods)
+        stamp("tp=1 serving reference")
+        shards = token_shards(TP_GRANITE, backbone_config(TP_GRANITE))[1]
+        print(json.dumps({"tp_launches": tp_phase(
+            torch, card, ops, flash_ops, flash_ref, shards, inputs)}))
+        stamp("tensor parallelism")
+        return 0
     if args.allocator_ab:
         allocator_ab(card)
         stamp("allocator A/B")
@@ -3967,13 +4670,24 @@ def main() -> int:
     kernel_mods = {"wavg": ops, "trimmed_wavg": robust_ops,
                    "ssd_scan": ssd_ops, "flash_attn": flash_ops,
                    "ring_accum": ring_ops}
-    serving = serve_phase(torch, card, kernel_mods,
-                          host_records.pop("mamba2-130m generator"))
+    serving, serving_inputs = serve_phase(
+        torch, card, kernel_mods, host_records.pop("mamba2-130m generator"))
     for entry in (wavg, trimmed, ssd, flash, ring):
         n = serving.get(entry["name"], 0)
         entry["launches_by_path"]["serving"] = n
         entry["launches"] += n
     stamp("serving")
+
+    # 10. tensor parallelism: the MLP-GAN and granite-3-2b on TP=2 gloo
+    # ranks against their tp=1 runs, and 9a's greedy requests served at
+    # tp=2 (the "tp" path: 10a's and 10b's launches, over the ranks)
+    tp = tp_phase(torch, card, ops, flash_ops, flash_ref,
+                  tokens["granite"][:TP_GRANITE["k"]], serving_inputs)
+    for entry in (wavg, trimmed, ssd, flash, ring):
+        n = tp.get(entry["name"], 0)
+        entry["launches_by_path"]["tp"] = n
+        entry["launches"] += n
+    stamp("tensor parallelism")
 
     print(json.dumps({"kernels": [wavg, trimmed, ssd, flash, ring]}))
     print(json.dumps({"ok": True, "device": {

@@ -44,18 +44,25 @@ LAYOUT:
   layout="stacked" - the K devices stacked on one card.
   layout="mesh"    - one rank of a `torch.distributed` group per device
       (`repro_torch.launch.mesh.spawn` starts them; `core/shard_round.py`
-      runs the round), at tp=1. Every rank builds its own Trainer once
-      the group exists and runs the same driver from the same seeded
-      streams, so masks, weights and history agree on every rank and with
-      a stacked Trainer of the same seed and driver. `avg_impl` picks
-      Algorithm 2's collective: "pallas" (flat all-gather, wavg kernel),
-      "jnp" (per-leaf all-reduce) or "ring" (the chunked ring, ring_accum
-      kernel).
+      runs the round). Every rank builds its own Trainer once the group
+      exists and runs the same driver from the same seeded streams, so
+      masks, weights and history agree on every rank and with a stacked
+      Trainer of the same seed and driver. `avg_impl` picks Algorithm
+      2's collective: "pallas" (flat all-gather, wavg kernel), "jnp"
+      (per-leaf all-reduce) or "ring" (the chunked ring, ring_accum
+      kernel). With tp > 1 every device is a model group of tp ranks
+      (`spawn(..., tp=tp)`): the spec must be built with
+      tp_axis="model" (`models.gan.mlp_gan_spec(tp_axis=)`,
+      `make_backbone_spec(tp_axis=)`), each rank holds its shards of the
+      TP-named leaves, cut on entry from the global tree, and runs the
+      Megatron feed-forward over its model group, while scheduling, the
+      channel, the quantized uplink's draws and Algorithm 2 stay on the
+      data group: each rank averages its shard only. Faults, robust
+      reducers and the ring are tp=1 only, as in the JAX Trainer.
 
 MICROBATCHING (`pcfg.micro_batch_d` / `micro_batch_g`) splits Algorithm
 1's and Algorithm 3's batches into chunks (`protocol._accumulated_grad`)
 on every algorithm but FedGAN, which has none, as in the JAX package.
-Tensor parallelism (tp > 1) raises a ValueError.
 
 CHECKPOINT/RESUME: `save_checkpoint`/`restore` write and read the state
 with the round index, the clock and the scheduler carry through
@@ -71,7 +78,10 @@ Trainer whose round graph is bound copies into the graph's static
 tensors, so a replay reads the restored state. On the mesh layout the
 checkpoint is global-shaped: the ranks' own optimizer states are
 gathered into the stacked (K, ...) tree, which rank 0 writes, and each
-rank restores its own slice.
+rank restores its own slice. Under tensor parallelism the shards are
+first gathered over the model group, so a checkpoint is global-shaped
+at every tp: one written at tp=2 restores at tp=1, and in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -95,6 +105,7 @@ from repro_torch.core.scheduling import SchedulerState, schedule_round
 from repro_torch.device import resolve_device
 from repro_torch.kernels.robust_avg.ops import ROBUST_METHODS, RobustConfig
 from repro_torch.launch import mesh
+from repro_torch.sharding import rules
 from repro_torch.tree import tree_index, tree_leaves, tree_map
 
 
@@ -176,8 +187,13 @@ def _check_scope(algorithm, driver, layout, tp, pcfg):
             f"layout='mesh' is not supported for algorithm "
             f"{algorithm!r} (mesh algorithms: {MESH_ALGORITHMS}); "
             f"use layout='stacked'")
-    if tp != 1:
-        raise ValueError(f"tp={tp} is not ported; the port runs tp=1")
+    if tp < 1:
+        raise ValueError(f"tp must be >= 1 (got {tp})")
+    if tp > 1 and layout != "mesh":
+        raise ValueError(
+            f"tp={tp} requires layout='mesh' (tensor parallelism runs "
+            f"on the mesh layout's model groups; the stacked layout has "
+            f"none)")
     if driver not in DRIVERS:
         raise ValueError(f"unknown driver {driver!r} (have {DRIVERS})")
     if driver == "fused" and algo.rounds_fn is None:
@@ -211,19 +227,49 @@ def _check_avg_impl(avg_impl, layout, tp, faults, reducer):
     shard_round.check_ring_support(avg_impl, tp, faults, reducer)
 
 
-def _mesh_rank(group, n_devices):
-    """This process's rank in the mesh layout's group."""
+def _check_spec_tp(spec, layout, tp):
+    """The JAX Trainer's check of the spec's TP-awareness against its
+    own: a dense spec takes shards shape-consistently but never reduces
+    the partial products, silently wrong."""
+    spec_tp_axis = spec.tp_axis
+    want_tp_axis = "model" if tp > 1 else None
+    if layout == "mesh" and spec_tp_axis != want_tp_axis:
+        raise ValueError(
+            f"tp={tp} needs a spec built with "
+            f"tp_axis={want_tp_axis!r}, got tp_axis="
+            f"{spec_tp_axis!r} — rebuild it (e.g. "
+            f"make_backbone_spec(tp_axis=...) / "
+            f"mlp_gan_spec(tp_axis=...))")
+    if layout != "mesh" and spec_tp_axis is not None:
+        raise ValueError(
+            f"spec was built with tp_axis={spec_tp_axis!r} (in-slice "
+            f"collectives) but layout={layout!r} has no model group; "
+            f"rebuild the spec with tp_axis=None")
+
+
+def _mesh_rank(group, n_devices, tp):
+    """(group, this process's rank in it, its model rank) of the mesh
+    layout: under TP the group defaults to the rank's data group."""
     if not (dist.is_available() and dist.is_initialized()):
         raise RuntimeError(
             "layout='mesh' runs inside a torch.distributed process group, "
             "one rank per device (start the ranks with "
             "repro_torch.launch.mesh.spawn)")
+    tp_rank = 0
+    if tp > 1:
+        model = mesh.axis_group("model")
+        err = mesh.tp_mesh_error(model, tp)
+        if err:
+            raise ValueError(err)
+        tp_rank = dist.get_rank(model)
+        if group is None:
+            group = mesh.axis_group("data")
     world = dist.get_world_size(group)
     if world != n_devices:
         raise ValueError(f"layout='mesh' needs one rank per device: the "
                          f"group has {world} ranks for pcfg.n_devices="
                          f"{n_devices}")
-    return dist.get_rank(group)
+    return group, dist.get_rank(group), tp_rank
 
 
 def _check_faults(faults, reducer, pcfg, algorithm, algo):
@@ -267,6 +313,8 @@ class Trainer:
     pcfg.n_devices ranks (`group`, the default group when None), where
     the rank keeps its own row of `data_stacked` and its own optimizer
     states; avg_impl: the mesh layout's Algorithm-2 collective.
+    tp: the mesh layout's model ranks a device (module docstring); at
+    tp > 1 `group` defaults to the rank's data group.
     sampler: optional t -> `protocol.RoundDraws` replacing the seeded
     `protocol.DrawSampler` (tests feed the JAX package's draws).
     fid_fn(gen_params, generator) is called on evaluation rounds with a
@@ -285,6 +333,7 @@ class Trainer:
                  partition_alpha: float = 0.5, partition_seed: int = 0,
                  sampler: Optional[Callable] = None, device=None):
         algo = _check_scope(algorithm, driver, layout, tp, pcfg)
+        _check_spec_tp(spec, layout, tp)
         reducer = _check_faults(faults, reducer, pcfg, algorithm, algo)
         _check_avg_impl(avg_impl, layout, tp, faults, reducer)
         # "auto" as `repro.core.engine.Trainer` resolves it: fused where
@@ -292,9 +341,12 @@ class Trainer:
         if driver == "auto":
             driver = "fused" if algo.rounds_fn is not None else "host"
         self.driver = driver
-        self.layout, self.avg_impl, self.group = layout, avg_impl, group
-        self.rank = (_mesh_rank(group, pcfg.n_devices) if layout == "mesh"
-                     else None)
+        self.layout, self.avg_impl, self.tp = layout, avg_impl, tp
+        self.rank, self.tp_rank = None, 0
+        if layout == "mesh":
+            group, self.rank, self.tp_rank = _mesh_rank(
+                group, pcfg.n_devices, tp)
+        self.group = group
         self.device = resolve_device(device)
         if partition is not None:
             from repro_torch.data.partition import partition as partition_fn
@@ -335,26 +387,39 @@ class Trainer:
         self.disc_step_flops = disc_step_flops
         self.gen_step_flops = gen_step_flops
 
+        self._tp_ctx, self._tp_dims = None, None
         if self.rank is None:
             self._round_fn, self._rounds_fn = algo.round_fn, algo.rounds_fn
             self.state = algo.make_state(init_fn, pcfg, self.n_devices,
                                          seed=seed, device=self.device)
         else:
-            self._round_fn, self._rounds_fn = (
-                functools.partial(fn, group=group, avg_impl=avg_impl)
-                for fn in (algo.mesh_round, algo.mesh_rounds))
             # one worker's optimizer states, unstacked
             state = algo.make_state(init_fn, pcfg, 1, seed=seed,
                                     device=self.device)
             self.state = {k: tree_index(v, 0) if k in algo.stacked_keys
                           else v for k, v in state.items()}
+            if tp > 1:
+                # divisibility and the quantizer's shard dims are decided
+                # on the global tree
+                self._tp_ctx = shard_round.make_tp_ctx(algo.payload,
+                                                       self.state, tp)
+                self._tp_dims = {k: rules.tp_tree_dims(v, tp)
+                                 for k, v in self.state.items()}
+            self._round_fn, self._rounds_fn = (
+                functools.partial(fn, group=group, avg_impl=avg_impl,
+                                  tp_ctx=self._tp_ctx)
+                for fn in (algo.mesh_round, algo.mesh_rounds))
         # The free-riders' stale-upload cache rides in the state.
         self.state = faults_lib.attach_fault_state(self.state, faults,
                                                    algo.payload)
+        # the worker's global counts: the channel times whole models
         self._disc_nparams = protocol.count_params(self.state["disc"])
         self._gen_nparams = protocol.count_params(self.state["gen"])
         self._uplink_bits = protocol.uplink_payload_bits(
             self.state, pcfg, fedgan=self._fedgan)
+        self._global_shapes = tree_map(lambda x: tuple(x.shape), self.state)
+        if self._tp_dims is not None:
+            self.state = self._shard(self.state)
         self.sampler = sampler or protocol.DrawSampler(
             spec, draw_pcfg, seed=seed, n_local=n_local,
             n_params=self._disc_nparams + (
@@ -383,10 +448,27 @@ class Trainer:
         return run(n_rounds, eval_every=eval_every, fid_fn=fid_fn,
                    verbose=verbose)
 
+    def _shard(self, state):
+        """This model rank's shards of a global state (tp > 1)."""
+        return {k: rules.shard_tree(v, self.tp, self.tp_rank,
+                                    self._tp_dims[k])
+                for k, v in state.items()}
+
+    def _unshard(self, state):
+        """The global state from every model rank's shards (collective
+        over the model group; the state itself at tp=1)."""
+        if self._tp_dims is None:
+            return state
+        return {k: rules.gather_tree(v, self._tp_dims[k], "model")
+                for k, v in state.items()}
+
     def _fid(self, fid_fn, eval_every, t):
         if fid_fn is None or not eval_every or (t + 1) % eval_every:
             return None
-        return float(fid_fn(self.state["gen"], protocol.seeded_generator(
+        gen = (self.state["gen"] if self._tp_dims is None else
+               rules.gather_tree(self.state["gen"], self._tp_dims["gen"],
+                                 "model"))
+        return float(fid_fn(gen, protocol.seeded_generator(
             self.seed, protocol.STREAM_FID, t, self.device)))
 
     # ------------------------------------------------------------------
@@ -419,7 +501,9 @@ class Trainer:
                 sched_carry=self._sched_carry, start_round=start,
                 disc_step_flops=self.disc_step_flops,
                 gen_step_flops=self.gen_step_flops,
-                uplink_bits=self._uplink_bits, faults=self.faults,
+                uplink_bits=self._uplink_bits,
+                disc_nparams=self._disc_nparams,
+                gen_nparams=self._gen_nparams, faults=self.faults,
                 reducer=self.reducer, graph=self._graph)
             for i in range(chunk):
                 t = start + i
@@ -499,12 +583,13 @@ class Trainer:
     # ------------------------------------------------------------------
     def _global_state(self):
         """The state as the stacked layout holds it: on a mesh rank, the
-        ranks' own optimizer states gathered into (K, ...) trees."""
+        shards gathered over the model group (tp > 1), then the ranks'
+        own optimizer states gathered into (K, ...) trees."""
         if self.rank is None:
             return self.state
         return {k: tree_map(lambda x: mesh.all_gather(x, self.group), v)
                 if k in self._algo.stacked_keys else v
-                for k, v in self.state.items()}
+                for k, v in self._unshard(self.state).items()}
 
     def save_checkpoint(self, directory: str):
         """Write the state with the round index, the clock and the
@@ -523,9 +608,13 @@ class Trainer:
         meta = {"algorithm": self.algorithm, "layout": self.layout,
                 "driver": self.driver}
         path = None
-        if self.rank in (None, 0):
+        if self.rank in (None, 0) and self.tp_rank == 0:
             path = checkpoint.save_checkpoint(directory, self._round_index,
                                               tree, metadata=meta)
+        if self.tp > 1:
+            # worker 0's model group, then every data group: each rank
+            # waits for rank (0, 0)'s write
+            dist.barrier(mesh.axis_group("model"))
         if self.rank is not None:
             dist.barrier(self.group)    # written before any rank goes on
         return path
@@ -542,17 +631,19 @@ class Trainer:
         state = {k: tree_index(v, self.rank) if k in keys else v
                  for k, v in tree["state"].items()}
 
-        def leaf(ref, x):
-            if tuple(x.shape) != tuple(ref.shape):
+        def leaf(ref, shape, x):
+            if tuple(x.shape) != shape:
                 raise ValueError(f"a leaf of shape {tuple(x.shape)} for "
-                                 f"{tuple(ref.shape)}")
+                                 f"{shape}")
             return torch.as_tensor(x).to(ref.device, ref.dtype)
 
         try:
-            state = tree_map(leaf, self.state, state)
+            state = tree_map(leaf, self.state, self._global_shapes, state)
         except (KeyError, TypeError, ValueError) as err:
             raise ValueError(f"the checkpoint's state does not fit this "
                              f"Trainer's: {err!r}") from err
+        if self._tp_dims is not None:
+            state = self._shard(state)
         if len(tree_leaves(state)) != len(tree_leaves(tree["state"])):
             raise ValueError("the checkpoint's state holds entries this "
                              "Trainer's does not")

@@ -86,12 +86,19 @@ class GanModelSpec:
     gen_apply(gen_params, z)         -> fake data batch
     disc_real(disc_params, batch)    -> logits (n,) on real data
     disc_fake(disc_params, fake)     -> logits (n,) on generated data
+
+    tp_axis: set by TP-aware builders (`make_backbone_spec(tp_axis=)`,
+    `gan.mlp_gan_spec(tp_axis=)`) when the apply functions run Megatron
+    collectives over the model group: the parameters they receive must
+    then be model-axis SHARDS. `engine.Trainer(tp=)` checks it against
+    its own tp, since a mismatch computes silently wrong results.
     """
     sample_z: Callable
     gen_apply: Callable
     disc_real: Callable
     disc_fake: Callable
     gen_loss_variant: str = "minimax"
+    tp_axis: Optional[str] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -585,6 +592,8 @@ def rounds(round_fn, pcfg: ProtocolConfig, state, data_stacked,
            seed: int, sched_carry=None, start_round: int = 0,
            disc_step_flops: float = 1e9, gen_step_flops: float = 1e9,
            fedgan: bool = False, uplink_bits: Optional[int] = None,
+           disc_nparams: Optional[int] = None,
+           gen_nparams: Optional[int] = None,
            faults=None, graph: graphs.RoundGraph):
     """The fused round engine: `n_rounds` rounds of ANY round function,
     Step 1 and the wallclock on the device. Port of
@@ -603,6 +612,9 @@ def rounds(round_fn, pcfg: ProtocolConfig, state, data_stacked,
     fedgan:    FedGAN's timing and wallclock composition
     uplink_bits: the per-device upload payload in bits; None computes it
                from the state at `pcfg.quantize_bits`
+    disc_nparams, gen_nparams: the parameter counts the channel times;
+               None counts the state's (a tensor-parallel rank passes
+               the worker's global counts)
     graph:     the `graphs.RoundGraph` that runs the rounds (the
                Trainer's: captured on CUDA on the stacked layout). The
                first call binds it to `state` and the carry, which it
@@ -630,8 +642,11 @@ def rounds(round_fn, pcfg: ProtocolConfig, state, data_stacked,
             prog.roles_on(device)          # copied once, before any round
         if uplink_bits is None:
             uplink_bits = uplink_payload_bits(state, pcfg, fedgan=fedgan)
-        counts = dict(disc_nparams=count_params(state["disc"]),
-                      gen_nparams=count_params(state["gen"]),
+        counts = dict(disc_nparams=(count_params(state["disc"])
+                                    if disc_nparams is None
+                                    else disc_nparams),
+                      gen_nparams=(count_params(state["gen"])
+                                   if gen_nparams is None else gen_nparams),
                       disc_step_flops=disc_step_flops,
                       gen_step_flops=gen_step_flops, uplink_bits=uplink_bits)
         first = sampler(start_round)

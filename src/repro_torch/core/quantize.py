@@ -61,6 +61,62 @@ def roundtrip(uniforms, tree, bits: int = 16):
     return tree_map(lambda d, x: d.to(x.dtype), dequantize_tree(q, s), tree)
 
 
+def roundtrip_tp(uniforms, tree, bits: int = 16, *, tp_axis=None,
+                 tp: int = 1, shard_dims=None):
+    """`roundtrip` of a TENSOR-PARALLEL shard of the upload payload.
+
+    On a model group's rank the tree holds only its Megatron shards, but
+    the paper's worker quantizes the WHOLE model with one draw. This
+    rebuilds exactly that: `uniforms` is the worker's whole (N,) row
+    over the GLOBAL payload in leaf order (the row `roundtrip` takes at
+    tp=1), from which each rank cuts its shard's positions; each
+    tensor's scale comes from the GLOBAL abs-max, an all-reduce MAX over
+    the model group. tp=2 therefore quantizes bit for bit like tp=1
+    given the same values.
+
+    shard_dims: per-leaf shard dim (negative) or None, in `tree_leaves`
+    order, from `sharding.rules.tp_tree_dims` on the GLOBAL payload.
+    Replicated leaves take their slice of the row whole.
+
+    As in the JAX package, every rank holds the global row of uniforms
+    (and a global-shaped view of each leaf's): the quantizer's memory
+    does not shrink with tp, only the state and the Algorithm-2
+    all-gather do."""
+    if bits >= 32:
+        return tree
+    if tp_axis is None or tp <= 1:
+        return roundtrip(uniforms, tree, bits)
+    from repro_torch.launch import mesh
+    group = mesh.axis_group(tp_axis)
+    rank = torch.distributed.get_rank(group)
+    levels = _levels(bits)
+    leaves = tree_leaves(tree)
+    if shard_dims is None or len(shard_dims) != len(leaves):
+        raise ValueError("roundtrip_tp needs one shard dim (or None) a "
+                         "leaf")
+    gshapes = []
+    for x, d in zip(leaves, shard_dims):
+        shape = list(x.shape)
+        if d is not None:
+            shape[d] *= tp
+        gshapes.append(shape)
+    gsizes = [int(torch.Size(shape).numel()) for shape in gshapes]
+    if uniforms.shape != (sum(gsizes),):
+        raise ValueError(f"uniforms of shape {tuple(uniforms.shape)} do "
+                         f"not cover the global payload ({sum(gsizes)})")
+    out, off = [], 0
+    for x, d, gshape, gsize in zip(leaves, shard_dims, gshapes, gsizes):
+        rnd = uniforms[off:off + gsize].reshape(gshape)
+        off += gsize
+        amax = x.abs().max()
+        if d is not None:
+            rnd = rnd.narrow(d, rank * x.shape[d], x.shape[d])
+            amax = mesh.all_reduce_max(amax, group)
+        q, scale = _quantize_leaf(x, rnd, amax, levels)
+        out.append((q.float() * scale).to(x.dtype))
+    return tree_unflatten(tree, out)
+
+
 def roundtrip_stacked(uniforms, stacked_tree, bits: int = 16):
     """Per-device quantize-dequantize of a tree with leading axis K
     (Step 3: every device quantizes its OWN upload with its own stream).

@@ -1,12 +1,21 @@
 """The mesh layout's process side: one `torch.distributed` rank per paper
-worker. Port of the process-group part of `repro.launch.mesh` (where a
-JAX mesh axis holds the workers, here a process group does).
+worker, or per (worker, model rank) pair under tensor parallelism. Port
+of the process-group part of `repro.launch.mesh` (where a JAX mesh axis
+holds the workers, here a process group does).
 
 `spawn` starts the ranks and collects what each returns; the collective
 helpers below run an all-gather or an all-reduce on any group. On a gloo
 group (ranks that share a card, or the CPU) the wire is host memory, so
 the helpers stage device tensors through the host; on an NCCL group the
 tensors stay on their cards.
+
+THE 2-D LAYOUT (`spawn(..., tp=t)`): the world is K x t ranks, global
+rank k * t + r being worker k's model rank r, as a JAX (data, model)
+mesh orders its devices. Every rank builds a data group for each r
+(ranks k * t + r over k: Algorithm 2's collectives) and a model group
+for each k (ranks k * t + r over r: the Megatron feed-forward's), and
+registers its own two under the axis names "data" and "model"
+(`axis_group`), which the TP-aware specs name as the JAX package's do.
 """
 from __future__ import annotations
 
@@ -52,6 +61,68 @@ def all_reduce_sum(t, group=None):
     return buf.to(t.device)
 
 
+def all_reduce_max(t, group=None):
+    """The elementwise max of every rank's `t`, on `t`'s device."""
+    buf = t.detach().to("cpu" if wire_on_host(group) else t.device,
+                        copy=True)
+    dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=group)
+    return buf.to(t.device)
+
+
+# ---------------------------------------------------------------------------
+# The 2-D (data x model) groups
+# ---------------------------------------------------------------------------
+
+_AXES: dict = {}      # axis name -> this rank's process group
+
+
+def _build_tp_groups(world_size: int, tp: int):
+    """Create every data and model group (each rank creates all of them,
+    in one order, as `dist.new_group` requires) and register this rank's
+    two under "data" and "model"."""
+    n_workers, me = world_size // tp, dist.get_rank()
+    _AXES.clear()
+    for r in range(tp):
+        g = dist.new_group([k * tp + r for k in range(n_workers)])
+        if me % tp == r:
+            _AXES["data"] = g
+    for k in range(n_workers):
+        g = dist.new_group([k * tp + r for r in range(tp)])
+        if me // tp == k:
+            _AXES["model"] = g
+
+
+def axis_group(axis):
+    """The process group of `axis`: a registered axis name ("data",
+    "model") resolves to this rank's group of that axis; a process group
+    passes through; None stays None."""
+    if axis is None or not isinstance(axis, str):
+        return axis
+    if axis not in _AXES:
+        raise RuntimeError(
+            f"no {axis!r} process group on this rank: start the ranks with "
+            f"repro_torch.launch.mesh.spawn(..., tp=...) (registered: "
+            f"{sorted(_AXES)})")
+    return _AXES[axis]
+
+
+def tp_mesh_error(model_group, tp: int):
+    """The shared tp-vs-groups contract: tensor parallelism of width `tp`
+    needs a model process group of exactly that size. Returns the
+    actionable message, or None when the group satisfies it (the
+    counterpart of `repro.launch.mesh.tp_mesh_error`, with the model
+    group in place of the mesh's 'model' axis)."""
+    if tp <= 1:
+        return None
+    size = (None if model_group is None
+            else dist.get_world_size(model_group))
+    if size != tp:
+        return (f"tp={tp} needs a model process group of size {tp} (got "
+                f"{'none' if size is None else size}); start the ranks "
+                f"with repro_torch.launch.mesh.spawn(..., tp={tp})")
+    return None
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("localhost", 0))
@@ -70,7 +141,7 @@ def _to_host(value):
 
 
 def _rank_main(rank, world_size, fn, device_type, backend, init_method,
-               timeout_s, queue):
+               timeout_s, queue, tp=1):
     try:
         if device_type == "cuda":
             device = torch.device("cuda", rank % torch.cuda.device_count())
@@ -80,9 +151,12 @@ def _rank_main(rank, world_size, fn, device_type, backend, init_method,
         dist.init_process_group(
             backend, init_method=init_method, world_size=world_size,
             rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
+        if tp > 1:
+            _build_tp_groups(world_size, tp)
         try:
             result = _to_host(fn(rank, world_size, device))
         finally:
+            _AXES.clear()
             dist.destroy_process_group()
         queue.put((rank, True, result))
     except BaseException:
@@ -91,7 +165,7 @@ def _rank_main(rank, world_size, fn, device_type, backend, init_method,
 
 
 def spawn(fn, world_size: int, *, device="cuda", backend=None,
-          init_method=None, timeout_s: float = 300.0):
+          init_method=None, timeout_s: float = 300.0, tp: int = 1):
     """Run `fn(rank, world_size, device)` on `world_size` ranks, each a
     process started with `torch.multiprocessing`'s "spawn" method, inside
     a process group; returns their results in rank order, with tensors
@@ -105,11 +179,15 @@ def spawn(fn, world_size: int, *, device="cuda", backend=None,
     init_method: None means tcp://localhost on a free port.
     timeout_s: bounds `init_process_group`, every collective, and the
     wait for each rank's result.
+    tp: the model ranks a worker (module docstring): world_size // tp
+    workers, each rank with its "data" and "model" groups registered.
 
     A rank that raises makes `spawn` stop the other ranks and raise a
     RuntimeError that carries the rank's traceback.
     """
     dev = resolve_device(device)
+    if tp < 1 or world_size % tp:
+        raise ValueError(f"tp={tp} must divide world_size={world_size}")
     if backend is None:
         backend = "nccl" if dev.type == "cuda" else "gloo"
     if backend == "nccl":
@@ -126,7 +204,7 @@ def spawn(fn, world_size: int, *, device="cuda", backend=None,
     queue = ctx.Queue()
     procs = [ctx.Process(target=_rank_main,
                          args=(rank, world_size, fn, dev.type, backend,
-                               init_method, timeout_s, queue))
+                               init_method, timeout_s, queue, tp))
              for rank in range(world_size)]
     for p in procs:
         p.start()
@@ -164,5 +242,5 @@ def spawn(fn, world_size: int, *, device="cuda", backend=None,
     return results
 
 
-__all__ = ["spawn", "all_gather", "all_reduce_sum", "wire_on_host",
-           "global_rank"]
+__all__ = ["spawn", "all_gather", "all_reduce_sum", "all_reduce_max",
+           "wire_on_host", "global_rank", "axis_group", "tp_mesh_error"]

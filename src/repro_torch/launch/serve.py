@@ -1,5 +1,5 @@
 """Serve a trained generator: the continuous-batching decode CLI (port of
-`repro.launch.serve` at tp=1).
+`repro.launch.serve`).
 
 Loads a training checkpoint in the JAX package's layout (written by
 either package's `save_checkpoint` or Trainer) and serves its generator
@@ -17,12 +17,22 @@ or a latency measurement). `--block-size 0` turns paging off and
 reserves dense per-slot `max_len` caches; otherwise the block pool
 defaults to the worst case (`batch * ceil(max_len/block) + 1` blocks)
 and `--n-blocks` caps it (admission then waits for blocks). `--device`
-defaults to CUDA and fails without it. `--tp` above 1 raises (ROADMAP
-A12).
+defaults to CUDA and fails without it.
+
+`--tp N` (N > 1) spawns N gloo ranks, a model group of N
+(`launch.mesh.spawn(..., tp=N)`, sharing the card, or the CPU); every
+rank loads the same GLOBAL-shaped checkpoint, whatever tp it was
+trained at, cuts its shards of the feed-forward from it, and serves the
+same requests; rank 0 prints. Greedy tokens equal tp=1's up to a near
+tie, since tp changes only the order of the w_out reduction:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
+        --reduced --tp 2 --block-size 0 --device cpu
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import time
 
 import numpy as np
@@ -31,6 +41,7 @@ import torch
 from repro_torch.checkpoint import load_checkpoint
 from repro_torch.configs import get_arch_config, list_archs
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh
 from repro_torch.models import gan
 from repro_torch.serving import Request, ServingEngine
 from repro_torch.tree import tree_map
@@ -51,17 +62,19 @@ def load_generator_params(ckpt_dir: str, step=None, device="cpu"):
     return tree_map(lambda x: torch.as_tensor(x).to(device), params), step
 
 
-def main(argv=None):
+def _parser():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=list_archs(), default="qwen3-1.7b")
     ap.add_argument("--reduced", action="store_true",
                     help="reduced (test-size) config")
     ap.add_argument("--ckpt-dir", default="",
-                    help="load the generator from this checkpoint directory")
+                    help="load the generator from this checkpoint directory "
+                         "(global-shaped; any training tp width)")
     ap.add_argument("--step", type=int, default=None,
                     help="checkpoint step (default: latest)")
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel width (only 1 is ported)")
+                    help="tensor-parallel width: spawns this many gloo "
+                         "ranks")
     ap.add_argument("--batch", type=int, default=4,
                     help="engine slots (max concurrent requests)")
     ap.add_argument("--max-len", type=int, default=256)
@@ -77,20 +90,27 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: CUDA)")
-    args = ap.parse_args(argv)
+    return ap
 
-    device = resolve_device(args.device)
+
+def _serve(args, device):
+    """Load (or initialise) the generator, serve the demo requests on
+    `device` at `args.tp`; returns the lines to print (model rank 0's
+    requests; the other ranks return the engine's line only)."""
+    lines = []
     cfg = get_arch_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     if args.ckpt_dir:
-        params, step = load_generator_params(args.ckpt_dir, args.step,
-                                             device)
-        print(f"loaded generator from {args.ckpt_dir} @ step {step}")
+        # on the CPU first: at tp > 1 the engine moves only its shards
+        params, step = load_generator_params(
+            args.ckpt_dir, args.step, "cpu" if args.tp > 1 else device)
+        lines.append(f"loaded generator from {args.ckpt_dir} @ step {step}")
     else:
         params = gan.generator_init(
             torch.Generator(device).manual_seed(args.seed), cfg)
-        print("no --ckpt-dir: serving a randomly initialised generator")
+        lines.append("no --ckpt-dir: serving a randomly initialised "
+                     "generator")
 
     block = args.block_size if args.block_size > 0 else None
     engine = ServingEngine(cfg, params, batch_size=args.batch,
@@ -98,10 +118,11 @@ def main(argv=None):
                            n_blocks=args.n_blocks,
                            prefill_chunk=args.prefill_chunk,
                            seed=args.seed, tp=args.tp, device=device)
-    print(f"engine: arch={args.arch} tp={args.tp} slots={args.batch} "
-          f"max_len={args.max_len} "
-          f"cache={'paged/' + str(block) if block else 'dense'} "
-          f"({engine.cache_bytes()} bytes) on {device}")
+    del params
+    lines.append(f"engine: arch={args.arch} tp={args.tp} slots={args.batch} "
+                 f"max_len={args.max_len} "
+                 f"cache={'paged/' + str(block) if block else 'dense'} "
+                 f"({engine.cache_bytes()} bytes) on {device}")
 
     rng = np.random.default_rng(args.seed)
     for i in range(args.demo):
@@ -112,14 +133,37 @@ def main(argv=None):
     t0 = time.perf_counter()
     finished = engine.run()
     wall = time.perf_counter() - t0
+    if engine.tp_rank != 0:
+        return lines
     n_tok = sum(len(r.out_tokens) for r in finished)
     for req in sorted(finished, key=lambda r: r.rid):
-        print(f"  rid={req.rid}: {req.out_tokens}")
+        lines.append(f"  rid={req.rid}: {req.out_tokens}")
     for req in engine.rejected:
-        print(f"  rid={req.rid}: REJECTED ({req.failed})")
-    print(f"{len(finished)} requests, {n_tok} tokens in {wall:.2f}s "
-          f"({n_tok / wall:.1f} tok/s), {engine.dispatch_count} steps, "
-          f"{engine.compile_count} compiles")
+        lines.append(f"  rid={req.rid}: REJECTED ({req.failed})")
+    lines.append(f"{len(finished)} requests, {n_tok} tokens in {wall:.2f}s "
+                 f"({n_tok / wall:.1f} tok/s), {engine.dispatch_count} "
+                 f"steps, {engine.compile_count} compiles")
+    return lines
+
+
+def _serve_rank(args, rank, world_size, device):
+    torch.set_num_threads(1)      # ranks that share a host
+    return _serve(args, device)
+
+
+def main(argv=None):
+    args = _parser().parse_args(argv)
+    device = resolve_device(args.device)
+    if args.tp > 1:
+        # one gloo rank a model shard (ranks may share a card)
+        per_rank = mesh.spawn(functools.partial(_serve_rank, args),
+                              args.tp, device=device.type, backend="gloo",
+                              tp=args.tp)
+        lines = per_rank[0]
+    else:
+        lines = _serve(args, device)
+    for line in lines:
+        print(line)
     return 0
 
 

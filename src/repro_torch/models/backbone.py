@@ -14,7 +14,9 @@ and full attention. Modes: "train" (the full sequence), "prefill" (the
 full sequence, and the decode caches it leaves), "decode" (tokens at
 any positions against caches, updated in place). Other families (moe,
 hybrid, encdec, vlm) raise NotImplementedError (ROADMAP A13), and so do
-cross caches and encoder states; tensor parallelism raises too (A12).
+cross caches and encoder states. `tp_axis` runs every dense feed-forward
+Megatron-style on a model group's rank, in every mode; attention, norms
+and the Mamba-2 mixers replicate, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -148,7 +150,7 @@ def _kv_to_cache(kv, positions, window, cache_len: int):
 
 def _run_sublayer(params_i, cfg: ArchConfig, kind: str, h, *, inv_freq,
                   positions, cache, cache_index, mode: str, cache_len: int,
-                  ssd_scan_impl, cache_write_mask, paged_table):
+                  ssd_scan_impl, cache_write_mask, paged_table, tp_axis):
     """One sublayer. Returns (h, aux, cache or None); decode updates the
     cache in place."""
     if kind in _ATTN:
@@ -160,10 +162,12 @@ def _run_sublayer(params_i, cfg: ArchConfig, kind: str, h, *, inv_freq,
                 params_i, cfg, h, window=window, inv_freq=inv_freq,
                 positions=positions, cache=cache, cache_index=cache_index,
                 cache_write_mask=cache_write_mask,
-                paged_table=paged_table if window is None else None)
+                paged_table=paged_table if window is None else None,
+                tp_axis=tp_axis)
         h, aux, kv = blocks.attn_layer_apply(
             params_i, cfg, h, window=window, inv_freq=inv_freq,
-            positions=positions, return_kv=mode == "prefill")
+            positions=positions, return_kv=mode == "prefill",
+            tp_axis=tp_axis)
         return h, aux, (None if kv is None else
                         _kv_to_cache(kv, positions, window, cache_len))
     if mode == "decode":
@@ -198,16 +202,16 @@ def backbone_apply(params, cfg: ArchConfig, h, *, mode: str = "train",
         then shared block pools (`repro_torch.serving.cache`).
     prefill_cache_len: the slots of prefill's full-attention caches
         (default s).
+    tp_axis: Megatron tensor parallelism of the dense feed-forward
+        blocks over the model group ("model", or a process group):
+        `params` then hold the model-axis SHARDS of w_in/w_gate/w_out
+        (`sharding.rules.tp_leaf_dim`).
     Returns dict(h=..., aux=..., caches=...): the prefill caches, the
     updated decode caches, or None."""
     _check_family(cfg)
     if enc_h is not None:
         raise NotImplementedError("encoder and image states (enc_h) are not "
                                   "ported (ROADMAP A13)")
-    if tp_axis is not None:
-        raise NotImplementedError(f"backbone_apply(tp_axis={tp_axis!r}): "
-                                  f"tensor parallelism is not ported "
-                                  f"(ROADMAP A12)")
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode {mode!r}")
     if mode == "decode" and caches is None:
@@ -233,7 +237,8 @@ def backbone_apply(params, cfg: ArchConfig, h, *, mode: str = "train",
                 cache=None if caches_g is None else caches_g[f"sub{i}"],
                 cache_index=cache_index, mode=mode, cache_len=cache_len,
                 ssd_scan_impl=ssd_scan_impl,
-                cache_write_mask=cache_write_mask, paged_table=paged_table)
+                cache_write_mask=cache_write_mask, paged_table=paged_table,
+                tp_axis=tp_axis)
             aux = aux + aux_i
             if new_i is not None:
                 new[f"sub{i}"] = new_i

@@ -60,10 +60,13 @@ def attn_layer_init(generator: torch.Generator, cfg: ArchConfig):
 def attn_layer_apply(params, cfg: ArchConfig, h, *, window, inv_freq,
                      positions=None, causal: bool = True, cache=None,
                      cache_index=None, cache_write_mask=None,
-                     paged_table=None, return_kv: bool = False):
+                     paged_table=None, return_kv: bool = False,
+                     tp_axis=None):
     """Returns (h, aux, new cache or k/v or None): the self-attention
     sublayer, then the dense feed-forward, each residual. The cache
-    arguments select attention's serving paths (`nn.attention_apply`)."""
+    arguments select attention's serving paths (`nn.attention_apply`).
+    tp_axis runs the feed-forward Megatron-style on a model group's rank
+    (attention replicates over the model axis)."""
     _refuse_moe(cfg)
     x = _norm_apply(cfg, params["ln_attn"], h)
     out = nn.attention_apply(
@@ -79,7 +82,7 @@ def attn_layer_apply(params, cfg: ArchConfig, h, *, window, inv_freq,
         attn_out, new_cache = out, None
     h = h + attn_out
     x = _norm_apply(cfg, params["ln_ff"], h)
-    h = h + nn.mlp_apply(params["ff"], x)
+    h = h + nn.mlp_apply(params["ff"], x, tp_axis=tp_axis)
     return h, torch.zeros((), dtype=torch.float32, device=h.device), new_cache
 
 

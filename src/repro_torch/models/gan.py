@@ -27,6 +27,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.protocol import GanModelSpec
 from repro_torch.models.backbone import backbone_apply, backbone_init
 from repro_torch.nn import initializers
+from repro_torch.nn.linear import linear_apply
 
 
 def disc_config(cfg: ArchConfig) -> ArchConfig:
@@ -51,12 +52,15 @@ def generator_init(generator: torch.Generator, cfg: ArchConfig):
     }
 
 
-def generator_apply(params, cfg: ArchConfig, z, *, remat: bool = True):
+def generator_apply(params, cfg: ArchConfig, z, *, remat: bool = True,
+                    tp_axis=None):
     """GAN mode: noise sequence -> (synthetic embedding sequence
-    (b, s, d), aux)."""
+    (b, s, d), aux). tp_axis runs the backbone's feed-forward blocks
+    Megatron-style over the model group (`params` hold its shards; the
+    projections here replicate)."""
     h = z @ params["z_proj"].to(z.dtype)
     out = backbone_apply(params["backbone"], cfg, h, mode="train",
-                         remat=remat)
+                         remat=remat, tp_axis=tp_axis)
     fake = out["h"] @ params["out_proj"].to(h.dtype)
     return fake, out["aux"]
 
@@ -72,7 +76,9 @@ def generator_lm_apply(params, cfg: ArchConfig, tokens, *,
                        prefill_cache_len=None, tp_axis=None):
     """LM mode: tokens (b, s) -> {"logits" (b, s, vocab), "aux",
     "caches"}. Serving's prefill and decode conventions (any-position
-    decode, chunked prefill, paged caches) are `backbone_apply`'s."""
+    decode, chunked prefill, paged caches) are `backbone_apply`'s;
+    tp_axis: the Megatron feed-forward over the model group (the
+    sharded-leaf contract of training)."""
     if enc_feats is not None:
         raise NotImplementedError(f"{cfg.name}: encoder and image features "
                                   f"(enc_feats) are not ported (ROADMAP A13)")
@@ -107,12 +113,13 @@ def discriminator_embed(params, tokens):
 
 
 def discriminator_apply(params, cfg: ArchConfig, x_embed, *,
-                        remat: bool = True):
+                        remat: bool = True, tp_axis=None):
     """x_embed: (b, s, d) — real (embedded tokens) or fake (generator
-    out). Returns (per-example logits (b,), aux)."""
+    out). Returns (per-example logits (b,), aux). tp_axis as in
+    generator_apply."""
     h = x_embed @ params["in_proj"].to(x_embed.dtype)
     out = backbone_apply(params["backbone"], disc_config(cfg), h,
-                         mode="train", remat=remat)
+                         mode="train", remat=remat, tp_axis=tp_axis)
     pooled = torch.mean(out["h"].float(), dim=1)
     logit = pooled @ params["score"].float()
     return logit[..., 0], out["aux"]
@@ -143,22 +150,28 @@ def mlp_gan_init(generator: torch.Generator, *, d_z: int = 8,
 
 def mlp_gan_spec(*, d_z: int = 8, tp_axis=None):
     """The `GanModelSpec` of the MLP-GAN (port of
-    `repro.models.gan.mlp_gan_spec` at tp_axis=None: the dense math, any
-    layout, any driver). Tensor parallelism is not ported (ROADMAP A
-    item 8): any other tp_axis raises."""
-    if tp_axis is not None:
-        raise NotImplementedError(
-            f"mlp_gan_spec(tp_axis={tp_axis!r}): tensor parallelism is not "
-            f"ported (ROADMAP A item 8); use tp_axis=None")
+    `repro.models.gan.mlp_gan_spec`).
 
+    tp_axis=None is the plain dense math (any layout, any driver). With
+    tp_axis set ("model") the spec runs on the ranks of a model group
+    and takes their shards: w_in is column-parallel (copy_to_tp pins
+    the backward dx all-reduce), w_out row-parallel (one forward
+    all-reduce), for both networks."""
     def gen_apply(p, z):
-        return torch.tanh(torch.tanh(z @ p["w_in"]) @ p["w_out"])
+        h = torch.tanh(linear_apply({"w": p["w_in"]}, z, tp_axis=tp_axis,
+                                    tp_mode="column"))
+        return torch.tanh(linear_apply({"w": p["w_out"]}, h,
+                                       tp_axis=tp_axis, tp_mode="row"))
 
     def disc_logits(p, x):
         x = x.reshape(x.shape[0], -1)
-        return (torch.tanh(x @ p["w_in"]) @ p["w_out"])[:, 0]
+        h = torch.tanh(linear_apply({"w": p["w_in"]}, x, tp_axis=tp_axis,
+                                    tp_mode="column"))
+        return linear_apply({"w": p["w_out"]}, h, tp_axis=tp_axis,
+                            tp_mode="row")[:, 0]
 
     return GanModelSpec(
         sample_z=lambda generator, n: torch.randn(
             (n, d_z), generator=generator, device=generator.device),
-        gen_apply=gen_apply, disc_real=disc_logits, disc_fake=disc_logits)
+        gen_apply=gen_apply, disc_real=disc_logits, disc_fake=disc_logits,
+        tp_axis=tp_axis)

@@ -25,33 +25,56 @@ def make_dcgan_spec(cfg: DCGANConfig, *,
 
 def make_backbone_spec(cfg: ArchConfig, seq_len: int, *, enc_feats_fn=None,
                        remat: bool = True,
-                       gen_loss_variant: str = "minimax") -> GanModelSpec:
+                       gen_loss_variant: str = "minimax",
+                       tp_axis=None) -> GanModelSpec:
     """Backbone-GAN over token data.
 
     Real batches are integer token arrays (m, seq_len); they enter the
     discriminator through its embedding table. Fakes are generator
     embedding sequences (m, seq_len, d). `sample_z(generator, n)` draws
     (n, seq_len, d_z) noise. Conditioned families (`enc_feats_fn`) are
-    not ported (ROADMAP A13), nor tensor parallelism (A12).
+    not ported (ROADMAP A13).
+
+    tp_axis: Megatron tensor parallelism of BOTH nets' feed-forward
+    blocks over the model group ("model"): the parameters the apply
+    functions receive must then be its shards (`sharding.rules`
+    tp_leaf_dim names). fuse_proj configs cannot be tensor-parallel (the
+    fused [in|gate] halves do not shard contiguously), nor MoE ones, as
+    in the JAX package.
     """
     if enc_feats_fn is not None:
         raise NotImplementedError("conditioned backbone-GANs (enc_feats_fn) "
                                   "are not ported (ROADMAP A13)")
+    if tp_axis is not None:
+        if cfg.fuse_proj:
+            raise ValueError(
+                f"{cfg.name}: fuse_proj=True cannot be tensor-parallel "
+                f"(fused [in|gate] halves don't shard contiguously); "
+                f"use a non-fused config for tp > 1")
+        if cfg.moe is not None:
+            raise ValueError(
+                f"{cfg.name}: MoE feed-forward has no in-slice TP path "
+                f"yet (moe_apply runs dense per expert; expert "
+                f"parallelism is a ROADMAP item) — use tp=1 for MoE "
+                f"configs on the mesh layout")
 
     def sample_z(generator, n):
         return torch.randn((n, seq_len, cfg.d_z), generator=generator,
                            device=generator.device)
 
     def gen_apply(gen, z):
-        return gan_model.generator_apply(gen, cfg, z, remat=remat)[0]
+        return gan_model.generator_apply(gen, cfg, z, remat=remat,
+                                         tp_axis=tp_axis)[0]
 
     def disc_real(disc, tokens):
         x = gan_model.discriminator_embed(disc, tokens)
-        return gan_model.discriminator_apply(disc, cfg, x, remat=remat)[0]
+        return gan_model.discriminator_apply(disc, cfg, x, remat=remat,
+                                             tp_axis=tp_axis)[0]
 
     def disc_fake(disc, fake):
-        return gan_model.discriminator_apply(disc, cfg, fake, remat=remat)[0]
+        return gan_model.discriminator_apply(disc, cfg, fake, remat=remat,
+                                             tp_axis=tp_axis)[0]
 
     return GanModelSpec(sample_z=sample_z, gen_apply=gen_apply,
                         disc_real=disc_real, disc_fake=disc_fake,
-                        gen_loss_variant=gen_loss_variant)
+                        gen_loss_variant=gen_loss_variant, tp_axis=tp_axis)

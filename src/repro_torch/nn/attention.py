@@ -15,8 +15,12 @@ token, a paged write into the null block, an index past the cache)
 leaves every leaf bit for bit unchanged, with no data-dependent shape,
 so a serving step can be captured in a CUDA graph (`_write_rows`).
 
-The fused qkv projection and the k/v-repeating flash layout of tensor
-parallelism (`fuse_qkv`, `flash_repeat_kv`) raise (ROADMAP A12).
+`fuse_qkv` (leaf `wqkv`, bias `bqkv`) projects q, k and v with one
+matmul, [q | k | v] on the output dim. `flash_repeat_kv` repeats k and v
+to all H heads before the flash path, so the kernel runs with KV = H
+(the JAX package's head-shardable layout); without it the kernel takes
+the unrepeated KV heads. Attention replicates under tensor parallelism,
+as in the JAX package.
 """
 from __future__ import annotations
 
@@ -39,14 +43,28 @@ def attention_init(generator: torch.Generator, d_model: int, n_heads: int,
                    n_kv_heads: int, head_dim: Optional[int] = None, *,
                    qk_norm: bool = False, use_bias: bool = False,
                    fuse_qkv: bool = False):
-    if fuse_qkv:
-        raise NotImplementedError("the fused qkv projection (fuse_qkv) is "
-                                  "not ported (ROADMAP A12)")
     if head_dim is None:
         head_dim = d_model // n_heads
     if n_heads % n_kv_heads:
         raise ValueError("GQA requires n_heads % n_kv_heads == 0")
     device = generator.device
+    if fuse_qkv:
+        # one fused projection: one matmul forward, one dx all-reduce
+        # backward under tensor parallelism
+        width = (n_heads + 2 * n_kv_heads) * head_dim
+        params = {
+            "wqkv": initializers.lecun_normal(generator, (d_model, width)),
+            "wo": initializers.lecun_normal(generator,
+                                            (n_heads * head_dim, d_model),
+                                            fan_in=n_heads * head_dim),
+        }
+        if use_bias:
+            params["bqkv"] = torch.zeros(width, device=device)
+            params["bo"] = torch.zeros(d_model, device=device)
+        if qk_norm:
+            params["q_norm"] = rmsnorm_init(head_dim, device=device)
+            params["k_norm"] = rmsnorm_init(head_dim, device=device)
+        return params
     params = {
         "wq": initializers.lecun_normal(generator,
                                         (d_model, n_heads * head_dim)),
@@ -172,22 +190,35 @@ def attention_apply(params, x, *, n_heads: int, n_kv_heads: int,
     extra_mask: additive float32 bias (b, s, t).
     Returns y (b, s, d); (y, cache) with a cache; (y, {"k", "v"}) with
     return_kv."""
-    if "wqkv" in params:
-        raise NotImplementedError("the fused qkv projection (wqkv) is not "
-                                  "ported (ROADMAP A12)")
     b, s, _ = x.shape
-    head_dim = params["wq"].shape[1] // n_heads
+    fused_proj = "wqkv" in params
+    head_dim = (params["wqkv"].shape[1] // (n_heads + 2 * n_kv_heads)
+                if fused_proj else params["wq"].shape[1] // n_heads)
     kv_src = x if kv_x is None else kv_x
     explicit_positions = q_positions is not None or kv_positions is not None
 
-    q = _project(params, "q", x, n_heads, head_dim)
+    if fused_proj:
+        if kv_x is not None:
+            raise ValueError("the fused qkv projection is self-attention "
+                             "only (kv_x given)")
+        fused = x @ params["wqkv"].to(x.dtype)
+        if "bqkv" in params:
+            fused = fused + params["bqkv"].to(x.dtype)
+        nq, nkv = n_heads * head_dim, n_kv_heads * head_dim
+        q = fused[..., :nq].reshape(x.shape[:-1] + (n_heads, head_dim))
+        k = fused[..., nq:nq + nkv].reshape(
+            x.shape[:-1] + (n_kv_heads, head_dim))
+        v = fused[..., nq + nkv:].reshape(
+            x.shape[:-1] + (n_kv_heads, head_dim))
+    else:
+        q = _project(params, "q", x, n_heads, head_dim)
     if kv_override is not None:
         # pre-projected keys/values (cross-attention decode)
         k = kv_override["k"].to(x.dtype)
         v = kv_override["v"].to(x.dtype)
         if kv_positions is None and "pos" in kv_override:
             kv_positions = kv_override["pos"]
-    else:
+    elif not fused_proj:
         k = _project(params, "k", kv_src, n_kv_heads, head_dim)
         v = _project(params, "v", kv_src, n_kv_heads, head_dim)
     if qk_norm:
@@ -286,17 +317,21 @@ def attention_apply(params, x, *, n_heads: int, n_kv_heads: int,
     t = k.shape[1]
     scale = head_dim ** -0.5
     if extra_mask is None and cache is None and s * t >= _FLASH_THRESHOLD:
-        if flash_repeat_kv and group > 1:
-            raise NotImplementedError("the k/v-repeating flash layout "
-                                      "(flash_repeat_kv) is not ported "
-                                      "(ROADMAP A12)")
         if explicit_positions or kv_x is not None or kv_override is not None:
             raise NotImplementedError(
                 "the flash path takes self-attention with query and key i "
                 "at position i; explicit positions, kv_x and kv_override "
                 "run below the flash threshold")
-        # (b, s, H, hd) queries against the unrepeated (b, s, KV, hd) k/v
-        ctx = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
+        if flash_repeat_kv and group > 1:
+            # k/v repeated to all H heads: the kernel runs with KV = H
+            ctx = flash_ops.flash_attention(
+                q, k.repeat_interleave(group, dim=2),
+                v.repeat_interleave(group, dim=2), causal=causal,
+                window=window)
+        else:
+            # (b, s, H, hd) queries against the unrepeated (b, s, KV, hd)
+            ctx = flash_ops.flash_attention(q, k, v, causal=causal,
+                                            window=window)
     else:
         mask = build_mask(q_positions, kv_positions, causal=causal,
                           window=window, k_valid=k_valid)      # (b, s, t)

@@ -1,6 +1,5 @@
 """Continuous-batching serving engine for the generator as a causal LM
-(port of `repro.serving.engine` at tp=1, for the `dense` and `ssm`
-families).
+(port of `repro.serving.engine`, for the `dense` and `ssm` families).
 
 One step per engine iteration covers the whole request mix:
 
@@ -34,8 +33,19 @@ Host side: FIFO admission by rid, a rejection path for requests that can
 never fit (marked failed; the engine keeps going), and a block allocator
 for the paged pool (an exhausted pool makes the head of the queue wait).
 
-Tensor parallelism (tp > 1) raises (ROADMAP A12); the MoE, hybrid,
-encoder-decoder and vision families raise (A13).
+TENSOR PARALLELISM (tp > 1): one engine a rank of a model group of tp
+ranks (`launch.mesh.spawn(..., tp=tp)`, a (1, model=tp) layout), SPMD:
+every rank admits, schedules and samples the same requests from the same
+inputs, so sampling is replicated, while the dense feed-forward runs
+Megatron-style over the group on the rank's shards, cut on entry from
+the global parameters (`sharding.rules.shard_tree`): a global-shaped
+checkpoint serves at any tp. Rank 0 hands out the finished requests
+(`run` returns them there, and an empty list on the other ranks). On a
+gloo group the collectives go through the host, so the steps run
+uncaptured; capturing them under NCCL across cards waits for a machine
+with several (ROADMAP item 1). MoE and fuse_proj configs refuse tp > 1,
+as in the JAX package; the MoE, hybrid, encoder-decoder and vision
+families raise at any tp (A13).
 """
 from __future__ import annotations
 
@@ -49,9 +59,11 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.graphs import _sync_debug_error
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh
 from repro_torch.models import gan
 from repro_torch.models.backbone import _check_family, init_decode_caches
 from repro_torch.serving import cache as paging
+from repro_torch.sharding import rules
 from repro_torch.tree import tree_map
 
 @dataclasses.dataclass
@@ -164,15 +176,24 @@ class ServingEngine:
                 raise ValueError(
                     f"{cfg.name}: fuse_proj=True cannot be tensor-parallel "
                     f"(fused leaves have no per-shard name rule)")
-            raise NotImplementedError(f"serving at tp={tp}: tensor "
-                                      f"parallelism is not ported (ROADMAP "
-                                      f"A12)")
         _check_family(cfg)        # MoE, hybrid, encdec, vlm: ROADMAP A13
         self.cfg = cfg
+        self.tp = tp
+        self.tp_rank = 0
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             # the card by index, so that a front end's thread can select it
             self.device = torch.device("cuda", torch.cuda.current_device())
+        if tp > 1:
+            group = mesh.axis_group("model")
+            err = mesh.tp_mesh_error(group, tp)
+            if err:
+                raise ValueError(err)
+            self.tp_rank = torch.distributed.get_rank(group)
+            # the rank's shards, cut from the global parameters
+            gen_params = rules.shard_tree(tree_map(torch.as_tensor,
+                                                   gen_params),
+                                          tp, self.tp_rank)
         self.params = tree_map(lambda x: torch.as_tensor(x).to(self.device),
                                gen_params)
         self.b = batch_size
@@ -208,8 +229,9 @@ class ServingEngine:
         self._steps = {}                       # chunk bucket -> _Program
         self.dispatch_count = 0                # steps issued
         # capture the step programs as CUDA graphs (private: a check may
-        # turn it off to compare a replay with the eager step)
-        self._capture = self.device.type == "cuda"
+        # turn it off to compare a replay with the eager step); the gloo
+        # collectives of tp > 1 cannot be captured
+        self._capture = self.device.type == "cuda" and tp == 1
         self._init_io()
 
     # -- the static step buffers ------------------------------------------
@@ -276,7 +298,8 @@ class ServingEngine:
                     positions=(io["pf_pos0"] + steps)[None],
                     cache_write_mask=(steps < io["pf_nvalid"])[None],
                     paged_table=(io["table"].index_select(0, slot)
-                                 if self.paged else None), remat=False)
+                                 if self.paged else None), remat=False,
+                    tp_axis=self._tp_axis)
                 self._merge_slot_caches(part, slot)
                 last = out["logits"][0].index_select(0, io["pf_nvalid"] - 1)
                 pf_token = _sample_one(
@@ -288,12 +311,16 @@ class ServingEngine:
                 caches=self.caches, positions=io["pos"][:, None],
                 cache_write_mask=(io["active"] != 0)[:, None],
                 paged_table=io["table"] if self.paged else None,
-                remat=False)
+                remat=False, tp_axis=self._tp_axis)
             toks = _sample_one(out["logits"][:, 0], io["temp"],
                                _gumbel(self.seed, io["rid"], io["nout"],
                                        vocab))
             self._out[:self.b].copy_(toks)
             self._out[self.b:].copy_(pf_token)
+
+    @property
+    def _tp_axis(self):
+        return "model" if self.tp > 1 else None
 
     def _get_step(self, chunk: Optional[int]) -> _Program:
         if chunk not in self._steps:
@@ -458,10 +485,12 @@ class ServingEngine:
         return True
 
     def run(self, max_steps: int = 10_000):
+        """Step until every request is done (or `max_steps`); returns the
+        finished requests (on model rank 0; [] on the others)."""
         steps = 0
         while (self.queue or any(s is not None for s in self.slots)) \
                 and steps < max_steps:
             if not self.step():
                 break
             steps += 1
-        return self.finished
+        return self.finished if self.tp_rank == 0 else []

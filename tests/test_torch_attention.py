@@ -39,6 +39,7 @@ from repro_torch.nn import attention, flash_ref, mlp, rope
 from repro_torch.tree import tree_leaves, tree_map
 from torch_tf32 import matmul_tf32
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+from torch_world import world_of_one
 
 KEY = jax.random.PRNGKey(0)
 
@@ -342,11 +343,14 @@ def test_flash_branch_starts_at_the_same_length_as_jax(monkeypatch):
     assert taken["port"] == [(1, 513, 4, 16)]
 
 
-def test_attention_and_mlp_refuse_what_is_not_ported():
+def test_attention_and_mlp_refuse_what_is_not_ported(tmp_path):
     """The serving arguments, once refused, now give JAX's values (their
     cache paths: tests/test_torch_serving.py); the flash path still
-    takes only self-attention at positions 0..s-1, and tensor
-    parallelism (A12) stays refused."""
+    takes only self-attention at positions 0..s-1. The fused projections
+    and the k/v-repeating flash layout, once refused, give the unfused
+    layers' values (against JAX: tests/test_torch_tp.py); the TP
+    feed-forward needs a model group, equals the plain one on a group of
+    one rank, and refuses the fused w_inga, as the JAX package does."""
     jparams, x, kw, _ = attention_case(8, False)
     tparams = interop.to_torch(jparams, "cpu")
     tx = torch.tensor(x)
@@ -367,18 +371,31 @@ def test_attention_and_mlp_refuse_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="flash path"):
         attention.attention_apply(tparams, x520, **kw,
                                   q_positions=torch.arange(520)[None])
-    with pytest.raises(NotImplementedError, match="A12"):
-        attention.attention_apply({"wqkv": None}, tx, **kw)
-    with pytest.raises(NotImplementedError, match="A12"):
-        attention.attention_init(torch.Generator(), 64, 4, 2, fuse_qkv=True)
-    with pytest.raises(NotImplementedError, match="A12"):
-        mlp.mlp_init(torch.Generator(), 8, 16, fuse_gate=True)
-    with pytest.raises(NotImplementedError, match="A12"):
-        mlp.mlp_apply({"w_inga": None}, tx)
-    with pytest.raises(NotImplementedError, match="A12"):
-        mlp.mlp_apply({"w_in": None}, tx, tp_axis="model")
-    with pytest.raises(NotImplementedError, match="A12"):
-        attention.attention_apply(tparams, x520, flash_repeat_kv=True, **kw)
+    fused = {"wqkv": torch.cat([tparams["wq"], tparams["wk"],
+                                tparams["wv"]], dim=1), "wo": tparams["wo"]}
+    torch.testing.assert_close(attention.attention_apply(fused, tx, **kw),
+                               attention.attention_apply(tparams, tx, **kw),
+                               rtol=1e-6, atol=1e-6)
+    assert set(attention.attention_init(torch.Generator(), 64, 4, 2,
+                                        fuse_qkv=True)) == {"wqkv", "wo"}
+    ff = mlp.mlp_init(torch.Generator().manual_seed(1), 64, 32)
+    ff_fused = {"w_inga": torch.cat([ff["w_in"], ff["w_gate"]], dim=1),
+                "w_out": ff["w_out"]}
+    torch.testing.assert_close(mlp.mlp_apply(ff_fused, tx),
+                               mlp.mlp_apply(ff, tx), rtol=1e-6, atol=1e-6)
+    assert set(mlp.mlp_init(torch.Generator(), 8, 16, fuse_gate=True)) == {
+        "w_inga", "w_out"}
+    torch.testing.assert_close(
+        attention.attention_apply(tparams, x520, flash_repeat_kv=True, **kw),
+        attention.attention_apply(tparams, x520, **kw), rtol=1e-6,
+        atol=1e-6)
+    with pytest.raises(RuntimeError, match="no 'model' process group"):
+        mlp.mlp_apply(ff, tx, tp_axis="model")
+    with world_of_one(tmp_path) as group:
+        assert torch.equal(mlp.mlp_apply(ff, tx, tp_axis=group),
+                           mlp.mlp_apply(ff, tx))
+        with pytest.raises(ValueError, match="fuse_gate=True"):
+            mlp.mlp_apply(ff_fused, tx, tp_axis=group)
 
 
 # ---------------------------------------------------------------------------

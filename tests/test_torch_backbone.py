@@ -39,6 +39,7 @@ from repro_torch.models import specs as tspecs
 from repro_torch.tree import tree_leaves, tree_unflatten
 from test_torch_protocol import JaxDraws, quant_step_close
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+from torch_world import world_of_one
 
 JCFG = jget_arch_config("mamba2-130m").reduced()
 TCFG = get_arch_config("mamba2-130m").reduced()
@@ -179,7 +180,7 @@ def test_remat_gives_the_same_values_and_gradients():
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
-def test_backbone_refuses_what_is_not_ported():
+def test_backbone_refuses_what_is_not_ported(tmp_path):
     moe = get_arch_config("qwen3-1.7b").reduced()
     moe = dataclasses.replace(moe, family="moe")
     hybrid = dataclasses.replace(TCFG, family="hybrid", attn_every=2)
@@ -189,7 +190,9 @@ def test_backbone_refuses_what_is_not_ported():
         with pytest.raises(NotImplementedError, match="A13"):
             tgan.gan_init(torch.Generator(), cfg)
     # prefill, once refused, gives JAX's hidden states and decode state;
-    # encoder states (A13) and tensor parallelism (A12) stay refused
+    # encoder states (A13) stay refused; tensor parallelism, once
+    # refused, needs a model group and is the identity on a group of one
+    # rank (mamba2's backbone has no feed-forward to shard)
     params = tbackbone.backbone_init(torch.Generator().manual_seed(0), TCFG)
     h = np.random.default_rng(2).standard_normal(
         (1, 4, TCFG.d_model)).astype(np.float32)
@@ -206,8 +209,17 @@ def test_backbone_refuses_what_is_not_ported():
     th = torch.tensor(h)
     with pytest.raises(NotImplementedError, match="A13"):
         tbackbone.backbone_apply(params, TCFG, th, enc_h=th)
-    with pytest.raises(NotImplementedError, match="A12"):
-        tbackbone.backbone_apply(params, TCFG, th, tp_axis="model")
+    with pytest.raises(RuntimeError, match="no 'model' process group"):
+        dense = get_arch_config("qwen3-1.7b").reduced()
+        tbackbone.backbone_apply(
+            tbackbone.backbone_init(torch.Generator(), dense), dense,
+            torch.zeros(1, 2, dense.d_model), tp_axis="model")
+    with world_of_one(tmp_path) as group:
+        with torch.no_grad():
+            assert torch.equal(
+                tbackbone.backbone_apply(params, TCFG, th,
+                                         tp_axis=group)["h"],
+                tbackbone.backbone_apply(params, TCFG, th)["h"])
 
 
 def jax_draws(tpcfg, n_params):

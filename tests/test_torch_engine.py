@@ -149,9 +149,10 @@ def test_entry_points_need_a_device_or_an_explicit_cpu():
     pytest.param(dict(algorithm="centralized", driver="fused"),
                  "driver='fused' is not supported",
                  id="algorithm=centralized"),
-    pytest.param(dict(layout="mesh", tp=2), "not ported",
+    pytest.param(dict(layout="mesh", tp=2),
+                 "tp=2 needs a spec built with tp_axis='model'",
                  id="layout=mesh-tp=2"),
-    pytest.param(dict(tp=2), "not ported", id="tp=2"),
+    pytest.param(dict(tp=2), "requires layout='mesh'", id="tp=2"),
     pytest.param(dict(pcfg=dict(micro_batch_d=2, sample_size=5)),
                  "micro_batch_d=2 must divide the batch 5",
                  id="pcfg={'micro_batch_d': 2}"),
@@ -160,8 +161,10 @@ def test_entry_points_need_a_device_or_an_explicit_cpu():
                  id="pcfg={'micro_batch_g': 2}"),
 ])
 def test_trainer_refuses_what_is_not_ported(kw, match):
-    """What the port does not run (tp > 1), what the JAX Trainer refuses
-    (the centralized baseline on the fused driver), and a microbatch
+    """What the JAX Trainer refuses (the centralized baseline on the
+    fused driver, tp > 1 off the mesh layout or with a spec that is not
+    TP-aware; its messages, checked before any process group), and a
+    microbatch
     that does not divide its batch (refused before anything is built;
     the JAX package asserts it in the first round)."""
     kw = dict(kw)

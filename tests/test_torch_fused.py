@@ -459,7 +459,8 @@ def test_auto_resolves_as_in_jax(algorithm):
 
 def test_mlp_gan_matches_jax_and_trains_fused():
     """The forward of G and D on the JAX package's parameters, then 2
-    fused rounds of the MLP-GAN against 2 host rounds; tp_axis raises."""
+    fused rounds of the MLP-GAN against 2 host rounds; the TP-aware spec
+    refuses the stacked layout."""
     jparams = jgan.mlp_gan_init(KEY, d_data=16)
     params = interop.to_torch(jax.device_get(jparams), "cpu")
     jspec, tspec = jgan.mlp_gan_spec(), tgan.mlp_gan_spec()
@@ -487,8 +488,13 @@ def test_mlp_gan_matches_jax_and_trains_fused():
             for d in ("host", "fused")}
     _assert_same_rounds(runs["host"].run(2), runs["fused"].run(2))
     _assert_states_close(runs["fused"].state, runs["host"].state)
-    with pytest.raises(NotImplementedError, match="A item 8"):
-        tgan.mlp_gan_spec(tp_axis="model")
+    # the TP-aware spec (its tp=2 rounds: tests/test_torch_tp_mesh.py)
+    # runs only on the mesh layout, as in the JAX package
+    assert tgan.mlp_gan_spec(tp_axis="model").tp_axis == "model"
+    with pytest.raises(ValueError, match="has no model group"):
+        Trainer(tgan.mlp_gan_spec(tp_axis="model"), pcfg,
+                lambda g: tgan.mlp_gan_init(g, d_data=16), data,
+                channel_cfg=chan, device="cpu")
 
 
 def test_capture_allocator_setting_is_scoped(monkeypatch):

@@ -37,6 +37,7 @@ from repro_torch.serving import cache as paging
 from repro_torch.serving import engine
 from repro_torch.tree import tree_leaves
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+from torch_world import world_of_one
 
 
 class _Level0Jax:
@@ -314,7 +315,7 @@ def test_prefill_compile_count_is_log_bounded():
     assert eng.compile_count == 5     # {None, 1, 2, 4, 8}
 
 
-def test_refusals_name_their_roadmap_items():
+def test_refusals_name_their_roadmap_items(tmp_path):
     qwen = get_arch_config("qwen3-1.7b").reduced()
     moe = dataclasses.replace(qwen, family="moe", moe=MoEConfig(
         n_experts=4, top_k=2, d_ff_expert=128))
@@ -323,7 +324,9 @@ def test_refusals_name_their_roadmap_items():
     with pytest.raises(ValueError, match="fuse_proj"):
         ServingEngine(dataclasses.replace(qwen, fuse_proj=True), None, tp=2,
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
+    # tp > 1, once refused, needs its model group (spawn(..., tp=2);
+    # tests/test_torch_serving_tp.py serves on one)
+    with pytest.raises(RuntimeError, match="no 'model' process group"):
         ServingEngine(qwen, None, tp=2, device="cpu")
     for cfg in (moe, dataclasses.replace(qwen, family="encdec"),
                 dataclasses.replace(qwen, family="vlm"),
@@ -335,10 +338,14 @@ def test_refusals_name_their_roadmap_items():
         gan.generator_lm_apply(interop.to_torch(params, "cpu"), qwen,
                                torch.zeros((1, 2), dtype=torch.int64),
                                enc_feats=torch.zeros(1, 4, qwen.d_model))
-    with pytest.raises(NotImplementedError, match="A12"):
-        gan.generator_lm_apply(interop.to_torch(params, "cpu"), qwen,
-                               torch.zeros((1, 2), dtype=torch.int64),
-                               tp_axis="model")
+    # the TP feed-forward: the plain logits on a model group of one rank
+    tokens = torch.arange(1, 5, dtype=torch.int64)[None]
+    with world_of_one(tmp_path) as group, torch.no_grad():
+        assert torch.equal(
+            gan.generator_lm_apply(interop.to_torch(params, "cpu"), qwen,
+                                   tokens, tp_axis=group)["logits"],
+            gan.generator_lm_apply(interop.to_torch(params, "cpu"), qwen,
+                                   tokens)["logits"])
 
 
 # ---------------------------------------------------------------------------

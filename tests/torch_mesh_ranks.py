@@ -10,7 +10,7 @@ import numpy as np
 import torch
 
 from repro_torch import interop
-from repro_torch.tree import tree_index, tree_map
+from repro_torch.tree import tree_index, tree_leaves, tree_map
 
 
 def _setup():
@@ -202,3 +202,195 @@ def refusal(setting, rank, world_size, device):
     except ValueError as err:
         return str(err)
     return None
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: K workers x tp model ranks (spawn(..., tp=tp))
+# ---------------------------------------------------------------------------
+
+def _tp_ranks():
+    """(worker k, model rank r, data group, model group) of this rank."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh
+    data, model = mesh.axis_group("data"), mesh.axis_group("model")
+    return dist.get_rank(data), dist.get_rank(model), data, model
+
+
+def tp_collectives(mlp_params, x, cot, rank, world_size, device):
+    """`nn.tp`'s three pairs on this rank's model group, and the TP MLP
+    (this rank's shards of `mlp_params`) forward and backward against
+    the cotangent `cot`. Returns {"reduce", "copy_grad", "gather",
+    "gather_grad", "y", "dx", "grads" (the rank's shards)}."""
+    from repro_torch.nn import mlp, tp
+    from repro_torch.sharding import rules
+    _setup()
+    k, r, _, _ = _tp_ranks()
+    out = {}
+    a = torch.arange(6, dtype=torch.float32).reshape(2, 3) * (r + 1) + k
+    out["reduce"] = tp.reduce_from_tp(a, "model")
+    a.requires_grad_(True)
+    copied = tp.copy_to_tp(a, "model")
+    (copied * (r + 2)).sum().backward()
+    out["copy_grad"] = a.grad
+    b = a.detach().clone().requires_grad_(True)
+    gathered = tp.gather_from_tp(b, "model", dim=0)
+    weights = torch.arange(gathered.numel(), dtype=torch.float32).reshape(
+        gathered.shape)
+    (gathered * weights).sum().backward()
+    out["gather"], out["gather_grad"] = gathered, b.grad
+    params = rules.shard_tree(interop.to_torch(mlp_params, device), 2, r)
+    params = tree_map(lambda t: t.requires_grad_(True), params)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    y = mlp.mlp_apply(params, xt, tp_axis="model")
+    (y * torch.from_numpy(cot)).sum().backward()
+    out["y"], out["dx"] = y, xt.grad
+    out["grads"] = tree_map(lambda t: t.grad, params)
+    out["tp_rank"] = tp.tp_rank("model")
+    return out
+
+
+def tp_round_cases(state, data, cases, rank, world_size, device):
+    """One TP mesh round of the MLP-GAN per case on this rank, from the
+    stacked-layout `state` of the case's algorithm: the rank's slice of
+    the per-device entries, its shards of everything (`make_tp_ctx` and
+    the shard dims decided on the global state). Returns [(new state
+    shards, metrics)]."""
+    from repro_torch.configs import ProtocolConfig
+    from repro_torch.core import shard_round
+    from repro_torch.models import gan
+    from repro_torch.sharding import rules
+    _setup()
+    k, r, data_group, _ = _tp_ranks()
+    spec = gan.mlp_gan_spec(d_z=8, tp_axis="model")
+    out = []
+    for case in cases:
+        fedgan = case["algorithm"] == "fedgan"
+        keys = (shard_round.FEDGAN_STACKED_KEYS if fedgan
+                else shard_round.PROPOSED_STACKED_KEYS)
+        st = interop.to_torch(state[case["algorithm"]], device)
+        st = {key: tree_index(v, k) if key in keys else v
+              for key, v in st.items()}
+        ctx = shard_round.make_tp_ctx(
+            shard_round.FEDGAN_PAYLOAD if fedgan
+            else shard_round.PROPOSED_PAYLOAD, st, 2)
+        st = {key: rules.shard_tree(v, 2, r) for key, v in st.items()}
+        fn = (shard_round.fedgan_mesh_round if fedgan
+              else shard_round.mesh_round)
+        new_st, metrics = fn(
+            spec, ProtocolConfig(**case["pcfg"]), st,
+            torch.from_numpy(data[k]), torch.tensor(case["w"][k]),
+            _draws(case["draws"]), group=data_group, avg_impl=case["impl"],
+            tp_ctx=ctx)
+        out.append((new_st, {key: float(v) for key, v in metrics.items()}))
+    return out
+
+
+def _tp_model(model, tp):
+    """(spec, init_fn) of `_model`'s model, built for `tp`: the MLP-GAN
+    ({"mlp": kwargs of mlp_gan_init}) or a reduced backbone."""
+    from repro_torch.models import gan, specs
+    axis = "model" if tp > 1 else None
+    if "mlp" in model:
+        return (gan.mlp_gan_spec(d_z=model["mlp"].get("d_z", 8),
+                                 tp_axis=axis),
+                lambda g: gan.mlp_gan_init(g, **model["mlp"]))
+    import dataclasses
+    from repro_torch.configs import get_arch_config
+    cfg = dataclasses.replace(get_arch_config(model["arch"]).reduced(),
+                              **model.get("changes", {}))
+    return (specs.make_backbone_spec(cfg, model["seq"], remat=False,
+                                     gen_loss_variant="nonsaturating",
+                                     tp_axis=axis),
+            lambda g: gan.gan_init(g, cfg))
+
+
+def weights_fid(gen, generator):
+    """A stand-in FID that reads every generator leaf: the sum of their
+    absolute values."""
+    return float(sum(float(x.double().abs().sum()) for x in
+                     tree_leaves(gen)))
+
+
+def tp_trainer_runs(data_by_model, runs, rank, world_size, device):
+    """`Trainer(layout="mesh", tp=2)` for each run: its rounds of its
+    driver, with `weights_fid` every run["eval_every"] rounds. Returns
+    [(history, the global state, the rank's own state shards' shapes of
+    one MLP leaf)]."""
+    from repro_torch.configs import ProtocolConfig
+    from repro_torch.core import Trainer
+    from repro_torch.core.channel import ChannelConfig
+    _setup()
+    out = []
+    for run in runs:
+        spec, init_fn = _tp_model(run["model"], 2)
+        tr = Trainer(spec, ProtocolConfig(**run["pcfg"]), init_fn,
+                     data_by_model[run["data"]], seed=run["seed"],
+                     algorithm=run["algorithm"], layout="mesh", tp=2,
+                     driver=run["driver"], device=device,
+                     channel_cfg=ChannelConfig(**run["channel"]))
+        hist = tr.run(run["rounds"], eval_every=run["eval_every"],
+                      fid_fn=weights_fid)
+        out.append(([(h.mask, h.weights, h.metrics, h.wallclock_s,
+                      h.cumulative_s, h.fid) for h in hist],
+                    tr._global_state(),
+                    {k: tuple(v.shape) for k, v in
+                     tr.state["disc"].items()} if "mlp" in run["model"]
+                    else None))
+    return out
+
+
+def tp_checkpoint(data, run, directory, rank, world_size, device):
+    """A tp=2 mesh Trainer of the MLP-GAN: 1 round, `save_checkpoint`;
+    then a tp=1 mesh Trainer on this rank's data group restores it and
+    runs 1 round. Returns (the tp=2 global state, the restored tp=1
+    state, its round-1 record, save_checkpoint's return)."""
+    from repro_torch.configs import ProtocolConfig
+    from repro_torch.core import Trainer
+    from repro_torch.core.channel import ChannelConfig
+    _setup()
+    _, _, data_group, _ = _tp_ranks()
+
+    def make(tp, **kw):
+        spec, init_fn = _tp_model(run["model"], tp)
+        return Trainer(spec, ProtocolConfig(**run["pcfg"]), init_fn, data,
+                       seed=run["seed"], algorithm=run["algorithm"],
+                       layout="mesh", driver=run["driver"], device=device,
+                       channel_cfg=ChannelConfig(**run["channel"]), tp=tp,
+                       **kw)
+
+    tr = make(2)
+    tr.run(1)
+    path = tr.save_checkpoint(directory)
+    before = tr._global_state()
+    one = make(1, group=data_group)
+    one.restore(directory)
+    # a copy: the fused driver goes on in the restored tensors
+    restored = tree_map(lambda t: t.clone(), one.state)
+    rec = one.run(1)[0]
+    return before, restored, (rec.round, rec.mask, rec.cumulative_s), path
+
+
+def tp_serve(ckpt_dir, arch, workload, blocks, rank, world_size, device):
+    """The generator of the global checkpoint in `ckpt_dir` served at
+    tp=2 on this rank, once a block size in `blocks` (None: dense):
+    [(finished {rid: tokens} as `run` returns them, every rank's own
+    {rid: tokens}, the rank's w_out shard shape)]."""
+    from repro_torch.configs import get_arch_config
+    from repro_torch.launch.serve import load_generator_params
+    from repro_torch.serving import Request, ServingEngine
+    _setup()
+    cfg = get_arch_config(arch).reduced()
+    params, _ = load_generator_params(ckpt_dir)
+    out = []
+    for block in blocks:
+        eng = ServingEngine(cfg, params, batch_size=2, max_len=32,
+                            block_size=block, prefill_chunk=4, tp=2,
+                            device=device)
+        for i, (p, n) in enumerate(workload):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=n))
+        handed = eng.run()
+        out.append(({r.rid: list(r.out_tokens) for r in handed},
+                    {r.rid: list(r.out_tokens) for r in eng.finished},
+                    tuple(eng.params["backbone"]["groups"]["sub0"]["ff"]
+                          ["w_out"].shape)))
+    return out
