@@ -11,6 +11,7 @@
                                          # expandable segments off and on
     python3 chip_smoke.py --tp-only      # phases 1-2, then phase 10 with
                                          # its own tp=1 serving reference
+    python3 chip_smoke.py --zoo-only     # phases 1-2, then phase 11
 
 Phases, in order; any failure exits non-zero:
   1. device   the card's name and power limit (nvidia-smi); TF32 off for
@@ -28,17 +29,21 @@ Phases, in order; any failure exits non-zero:
               kind and both KMAX buckets), N % 4 != 0 and a payload 4
               bytes off 16-byte alignment (the scalar path), its HBM
               share beside wavg's on the same payload, and the honest
-              rows' range; flash_attn at 29 shapes, D 32-256 (ragged
-              tiles, windows, bidirectional, bf16, strided and unaligned
-              q), its refusal of D 96, timed at the main shape, qwen3-
-              1.7b's heads, gemma3-12b's D 256, minitron-4b's shape and
-              gemma3-12b's windowed local layers (2 x 2048 tokens,
-              window 1024) beside SDPA (an explicit boolean mask for
-              the window), each SDPA call first held to the plain
-              version;
-              ssd_scan at 26 shapes (one chunk, 128 chunks, ragged last
+              rows' range; flash_attn at 40 shapes, D 32-256 with
+              zamba2-2.7b's D 80 (ragged tiles, windows, bidirectional,
+              bf16, strided and unaligned q; phase 11's shapes:
+              granite-moe-3b-a800m's round, zamba2-2.7b's round and
+              prefill of 520 tokens, mixtral-8x22b's 520 and 8,192
+              tokens in a 4,096-key window), its refusal of D 96,
+              timed at the main shape, qwen3-1.7b's heads, gemma3-12b's
+              D 256, minitron-4b's shape, gemma3-12b's windowed local
+              layers (2 x 2048 tokens, window 1024) and zamba2-2.7b's D
+              80 beside SDPA (an explicit boolean mask for the window),
+              each SDPA call first held to the plain version;
+              ssd_scan at 27 shapes (one chunk, 128 chunks, ragged last
               chunks, groups, p 32-128, n 16-160, bf16 x at the main
-              shape), its
+              shape, zamba2-2.7b's 80 heads of 64 with 64 states), timed
+              at the main shape and zamba2-2.7b's, its
               four CUDA kernels' device times, its f32 SIMT and f32-
               accurate tensor-core bounds (flash_attn's too); ring_accum
               for the three wire dtypes, in the ring's chunks at non-zero
@@ -167,8 +172,9 @@ Phases, in order; any failure exits non-zero:
   9. serving  the engine (`repro_torch.serving`), each run with the
               launch counts at 0 (the engine launches no hand-written
               kernel, as the JAX engine reaches no Pallas kernel):
-              a. granite-3-2b at full width and depth (40 layers,
-                 vocabulary 49,155, the generator alone) at batch 8,
+              a. granite-3-2b at full width, 8 of its 40 layers (cut
+                 to make room for phase 11; vocabulary 49,155, the
+                 generator alone) at batch 8,
                  max_len 1,024, 16-token blocks, 32-token prefill chunks,
                  16 seeded requests (prompts 16-512, 32-64 new tokens,
                  every other at temperature 0.8) through the paged engine
@@ -217,7 +223,7 @@ Phases, in order; any failure exits non-zero:
                  rank and round 1 wavg and 20 flash_attn launches; peak
                  memory a rank and seconds a round; wavg timed at the
                  1/TP payload beside the whole one
-              c. granite-3-2b at full depth served at TP=2 on 2 ranks,
+              c. 9a's granite-3-2b (8 layers) served at TP=2 on 2 ranks,
                  loaded from a global-shaped checkpoint written here (as
                  `launch.serve` loads one), 9a's greedy requests through
                  the paged and the dense engine (uncaptured: gloo): each
@@ -226,6 +232,34 @@ Phases, in order; any failure exits non-zero:
                  step beside 9a's; no kernel launch in the engines
               The "tp" path's launches are a's and b's, summed over
               the ranks.
+  11. zoo    the MoE and hybrid families at full width, under cuDNN's
+              deterministic algorithms:
+              a. granite-moe-3b-a800m (40 experts top-8), 32 layers cut
+                 to 2, K=4, m=4, seq_len 1024, n_d=n_g=2, Adam, on
+                 phase 5d's token data: 2 host rounds (the "moe" path,
+                 44 flash_attn launches a round), one more host round
+                 profiled (the dispatch, the experts, the combine and
+                 attention), then 2 fused rounds bit for bit the host's
+                 and one replay profiled
+              b. zamba2-2.7b, 9 groups cut to 2 (12 Mamba-2 layers, the
+                 shared block called twice), K=2, m=4, seq_len 1024,
+                 n_d=n_g=1, Adam: as a (the "hybrid" path, 84 ssd_scan
+                 and 14 flash_attn launches a round)
+              c. mixtral-8x22b, one layer in G and D: forward and
+                 backward at 8,192 tokens (the "mixtral" path, 3
+                 flash_attn launches in the 4,096-key window), finite
+                 gradients, peak memory; D's logits at 520 tokens
+                 against the CPU (rtol 1e-4)
+              d. both generators at full depth (32 and 54 layers) behind
+                 the paged, dense and uncaptured engines (batch 4, 16-
+                 token blocks, the serve CLI's 4 demo prompts, 20 greedy
+                 tokens each): tokens and cache leaves bit for bit, the
+                 greedy tokens against the dropless full forward, one
+                 mode="prefill" (zamba2 520 tokens, granite-moe 512, its
+                 dropless limit) against the chunked prefill (its
+                 launches join the "serving" path), and
+                 `launch.serve --arch zamba2-2.7b` giving the engine's
+                 tokens
 The last two lines are the `kernels` JSON line and
 {"ok": true, "device": {...}}.
 """
@@ -235,6 +269,7 @@ import contextlib
 import copy
 import dataclasses
 import functools
+import gc
 import json
 import os
 import shutil
@@ -294,6 +329,21 @@ FLASH_GEMMA3 = dict(b=1, s=1024, h=16, kv=8, d=256)
 FLASH_MINITRON = dict(b=4, s=1024, h=24, kv=8, d=128)
 FLASH_GEMMA3_LOCAL = dict(b=2, s=2048, h=16, kv=8, d=256)
 GEMMA3_WINDOW = 1024
+# The attention of phase 11's paths: granite-moe-3b-a800m (b = m = 4
+# sequences of 1024 tokens, 24 heads of 64 over 8), zamba2-2.7b's shared
+# block (11b's b = m = 4 sequences of 1,024 tokens, 32 heads of 80, as
+# many kv heads; 11d's mode="prefill" call of 520 tokens) and
+# mixtral-8x22b's one layer (48 heads of 128 over 8; 11c's check of 520
+# tokens, then 8,192 tokens, its window of 4,096 keys binding)
+FLASH_GRANITE_MOE = dict(b=4, s=1024, h=24, kv=8, d=64)
+FLASH_ZAMBA2 = dict(b=4, s=1024, h=32, kv=32, d=80)
+FLASH_ZAMBA2_PREFILL = dict(FLASH_ZAMBA2, b=1, s=520)
+FLASH_MIXTRAL = dict(b=1, s=8192, h=48, kv=8, d=128)
+FLASH_MIXTRAL_CHECK = dict(FLASH_MIXTRAL, s=520)
+MIXTRAL_WINDOW = 4096
+# zamba2-2.7b's Mamba-2 layers on 11b's 4 sequences of 1,024 tokens: 80
+# heads of 64 (d_inner 5,120), one group of 64 states
+SSD_ZAMBA2 = dict(b=4, s=1024, h=80, p=64, g=1, n=64, chunk=128)
 FLASH_ATOL, FLASH_ATOL_BF16 = 2e-5, 0.05   # as tests/test_kernels.py
 # The backbone-GAN paths: full width, K = 4 devices, 4,096 tokens a
 # batch; granite-3-2b's 40 layers cut to 4, so that K discriminators with
@@ -576,7 +626,8 @@ def check_ssd(torch, ops, ref, ssm):
     cases += [(dict(b=2, s=200, h=4, p=64, g=2, n=64, chunk=64),
                dict(x_dtype=torch.bfloat16, bc_scale=64 ** -0.5)),
               (SSD_MAIN, dict(x_dtype=torch.bfloat16, bc_scale=128 ** -0.5,
-                              strided=True))]
+                              strided=True)),
+              (SSD_ZAMBA2, dict(strided=True))]
     max_err, failed = {}, []
     for i, (shape, kw) in enumerate(cases):
         shape = dict(shape)
@@ -607,9 +658,24 @@ def check_ssd(torch, ops, ref, ssm):
           f"max abs err {max(max_err.values()):.3e}, at the main shape "
           f"{max_err[0]:.3e}")
 
-    main = dict(SSD_MAIN)
+    main = time_ssd(torch, ops, ref, ssm, gen, SSD_MAIN, "main")
+    zamba2 = time_ssd(torch, ops, ref, ssm, gen, SSD_ZAMBA2, "zamba2-2.7b")
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan/kernel.py:81",
+            "launches": None, "max_abs_err": max_err[0], **main,
+            "zamba2_shape": {**SSD_ZAMBA2, **zamba2,
+                             "max_abs_err": max_err[len(cases) - 1]}}
+
+
+def time_ssd(torch, ops, ref, ssm, gen, shape, label):
+    """The ssd_scan kernel at `shape` (no final state) timed beside the
+    plain version (the sequential recurrence), the port's chunked torch
+    scan and the bounds, and its four CUDA kernels' device times."""
+    main = dict(shape)
     chunk = main.pop("chunk")
-    # three input sets of ~31 MB each (x, dt, B, C), together past L2
+    # three input sets (x, dt, B, C; ~31 MB each at the main shape),
+    # together past L2
     sets = [ssd_inputs(torch, gen, **main, strided=True) for _ in range(3)]
     kernel_ms = time_ms(lambda *a: ops.ssd_scan(*a, chunk=chunk), sets)
     torch_ms = time_ms(lambda *a: ssm.ssd_scan_ref(*a, chunk=chunk), sets,
@@ -635,7 +701,8 @@ def check_ssd(torch, ops, ref, ssm):
     flops_ms = flops / F32_FLOPS_PER_S * 1e3
     simt_ms = max(bytes_ms, flops_ms)
     tc_ms = max(bytes_ms, TF32X3_PASSES * flops / TF32_FLOPS_PER_S * 1e3)
-    print(f"ssd_scan b={b} s={s} h={h} p={p} g={g} n={n} chunk={chunk}: "
+    print(f"ssd_scan {label} b={b} s={s} h={h} p={p} g={g} n={n} "
+          f"chunk={chunk}: "
           f"kernel {kernel_ms:.4f} ms, plain (sequential) {plain_ms:.4f} ms, "
           f"chunked torch scan {torch_ms:.4f} ms; bounds: f32 SIMT "
           f"{simt_ms:.4f} ms ({n_bytes} B = {bytes_ms:.4f} ms, {flops} flop "
@@ -646,14 +713,11 @@ def check_ssd(torch, ops, ref, ssm):
           f"of the tensor-core bound")
     by_kernel = kernel_device_ms(
         torch, lambda *a: ops.ssd_scan(*a, chunk=chunk), sets, SSD_KERNELS)
-    print("ssd_scan's kernels, device time a launch (profiler): " + ", ".join(
+    print(f"ssd_scan's kernels at {label}, device time a launch "
+          f"(profiler): " + ", ".join(
         f"{name} {'not seen' if ms is None else f'{ms:.4f} ms'}"
         for name, ms in by_kernel.items()))
-    return {"name": "ssd_scan", "route": "cuda",
-            "source": "src/repro_torch/csrc/ssd_scan.cu",
-            "replaces": "src/repro/kernels/ssd_scan/kernel.py:81",
-            "launches": None, "max_abs_err": max_err[0],
-            "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": tc_ms,
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": tc_ms,
             "bound_by": "bytes" if tc_ms == bytes_ms else "operations",
             "library_ms": None, "bound_f32_simt_ms": simt_ms,
             "chunked_torch_ms": torch_ms, "kernels_device_ms": by_kernel}
@@ -736,6 +800,21 @@ def check_flash(torch, ops, ref):
               (dict(small, s=200, d=256), dict(dtype=bf16, window=9)),
               (dict(FLASH_GEMMA3, s=257), dict(strided=True))]
     cases += [(dict(small, s=100), dict(unaligned=True))]
+    # head_dim 80 (zamba2-2.7b): causal, windowed, bidirectional, ragged
+    # last tiles, GQA, bf16, strided; phase 11's shapes: granite-moe-3b-
+    # a800m's, mixtral-8x22b's 520 and 8,192 tokens in its window of
+    # 4,096, zamba2-2.7b's prefill and round
+    cases += [(dict(small, s=200, d=80), {}),
+              (dict(small, s=300, d=80), dict(window=100)),
+              (dict(small, s=77, d=80), dict(causal=False)),
+              (dict(small, s=130, h=8, kv=2, d=80), {}),
+              (dict(small, s=131, d=80), dict(dtype=bf16)),
+              (dict(FLASH_ZAMBA2, b=1, s=257), dict(strided=True)),
+              (FLASH_GRANITE_MOE, {}),
+              (FLASH_MIXTRAL_CHECK, dict(window=MIXTRAL_WINDOW)),
+              (FLASH_MIXTRAL, dict(window=MIXTRAL_WINDOW)),
+              (FLASH_ZAMBA2_PREFILL, {}),
+              (FLASH_ZAMBA2, {})]
     # minitron-4b's shape; gemma3-12b's local layers, where the window
     # bites
     cases += [(FLASH_MINITRON, {}),
@@ -758,11 +837,20 @@ def check_flash(torch, ops, ref):
         max_err[i] = max(float((out - out_plain).abs().max()),
                          float((lse - lse_plain).abs().max()))
         del q, k, v, out, lse, out_plain, lse_plain
-    d256 = [e for i, e in max_err.items() if cases[i][0]["d"] == 256]
+    d256, d80 = ([e for i, e in max_err.items() if cases[i][0]["d"] == d]
+                 for d in (256, 80))
     print(f"flash_attn matches its plain version at {len(cases)} shapes, out "
           f"and lse (atol {FLASH_ATOL} f32, {FLASH_ATOL_BF16} bf16); max abs "
           f"err {max(max_err.values()):.3e}, at the main shape "
-          f"{max_err[0]:.3e}, at D 256 {max(d256):.3e}")
+          f"{max_err[0]:.3e}, at D 256 {max(d256):.3e}, at D 80 "
+          f"{max(d80):.3e}")
+    zoo_err = {name: max_err[cases.index((shape, kw))] for name, shape, kw in
+               (("zamba2", FLASH_ZAMBA2, {}),
+                ("zamba2_prefill", FLASH_ZAMBA2_PREFILL, {}),
+                ("granite_moe", FLASH_GRANITE_MOE, {}),
+                ("mixtral", FLASH_MIXTRAL, dict(window=MIXTRAL_WINDOW)),
+                ("mixtral_check", FLASH_MIXTRAL_CHECK,
+                 dict(window=MIXTRAL_WINDOW)))}
     try:
         ops._kernel_forward(*flash_inputs(torch, gen, **dict(small, s=8,
                                                               d=96)),
@@ -777,7 +865,8 @@ def check_flash(torch, ops, ref):
     for name, shape, window in (
             ("main", FLASH_MAIN, None), ("qwen3", FLASH_QWEN3, None),
             ("gemma3", FLASH_GEMMA3, None), ("minitron", FLASH_MINITRON, None),
-            ("gemma3_local", FLASH_GEMMA3_LOCAL, GEMMA3_WINDOW)):
+            ("gemma3_local", FLASH_GEMMA3_LOCAL, GEMMA3_WINDOW),
+            ("zamba2", FLASH_ZAMBA2, None)):
         b, s, h, kv, d = (shape[key] for key in "b s h kv d".split())
         # three input sets, together past L2
         sets = [flash_inputs(torch, gen, **shape) for _ in range(3)]
@@ -829,7 +918,18 @@ def check_flash(torch, ops, ref):
             "gemma3_local_shape": {**FLASH_GEMMA3_LOCAL,
                                    "window": GEMMA3_WINDOW,
                                    **timed["gemma3_local"],
-                                   "max_abs_err": max_err[len(cases) - 1]}}
+                                   "max_abs_err": max_err[len(cases) - 1]},
+            "zamba2_shape": {**FLASH_ZAMBA2, **timed["zamba2"],
+                             "max_abs_err": zoo_err["zamba2"]},
+            "zamba2_prefill_shape": {**FLASH_ZAMBA2_PREFILL,
+                                     "max_abs_err": zoo_err["zamba2_prefill"]},
+            "granite_moe_shape": {**FLASH_GRANITE_MOE,
+                                  "max_abs_err": zoo_err["granite_moe"]},
+            "mixtral_shape": {**FLASH_MIXTRAL, "window": MIXTRAL_WINDOW,
+                              "max_abs_err": zoo_err["mixtral"]},
+            "mixtral_check_shape": {**FLASH_MIXTRAL_CHECK,
+                                    "window": MIXTRAL_WINDOW,
+                                    "max_abs_err": zoo_err["mixtral_check"]}}
 
 
 @contextlib.contextmanager
@@ -1237,12 +1337,14 @@ def train(torch, ops, robust_ops):
 
 def backbone_config(bb):
     """The full-width config of `bb["arch"]`, its depth cut to
-    bb["layers"] and its vocabulary to bb.get("vocab"), where less."""
+    bb["layers"] and its vocabulary to bb.get("vocab"), where less, and
+    its discriminator's depth to bb.get("disc_layers")."""
     from repro_torch.configs import get_arch_config
     cfg = get_arch_config(bb["arch"])
     return dataclasses.replace(
         cfg, n_layers=min(cfg.n_layers, bb["layers"]),
-        vocab=min(cfg.vocab, bb.get("vocab", cfg.vocab)))
+        vocab=min(cfg.vocab, bb.get("vocab", cfg.vocab)),
+        disc_layers=bb.get("disc_layers", cfg.disc_layers))
 
 
 def token_shards(bb, cfg):
@@ -1503,13 +1605,17 @@ def _device_records(torch, prof):
             and not e.is_hidden_event()]
 
 
-def profile_round(torch, trainer, label):
+def profile_round(torch, trainer, label, ranges=BACKWARD_RANGES,
+                  kernels=()):
     """Where a round's time goes: one more round of `trainer` under
     torch.profiler (after the main paths' launch counts were read), its
     device-busy share, the kernels that take the most device time, and
-    the device time inside each of BACKWARD_RANGES. Host activity is
-    recorded too: the profiler puts a record_function range on the
-    device's timeline only then."""
+    the device time inside each of `ranges` (record_function names) and
+    of the kernels whose names match each regular expression of
+    `kernels`. Host activity is recorded too: the profiler puts a
+    record_function range on the device's timeline only then. Returns
+    {wall_s, busy_s, ranges_s, kernels_s} (None without device events)."""
+    import re
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1518,7 +1624,8 @@ def profile_round(torch, trainer, label):
         trainer.run(1)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    spans, by_name, ranges = [], {}, {name: [] for name in BACKWARD_RANGES}
+    spans, by_name = [], {}
+    ranges = {name: [] for name in ranges}
     for name, start_ns, stop_ns, annotation in _device_records(torch, prof):
         interval = (start_ns / 1e3, stop_ns / 1e3)          # microseconds
         if annotation:               # a range's span, not device work
@@ -1530,7 +1637,7 @@ def profile_round(torch, trainer, label):
     if not spans:
         print(f"profile of one {label} round: the profiler saw no device "
               f"events; device busy share not measured")
-        return
+        return None
     busy = _merged(spans)
     busy_us = sum(stop - start for start, stop in busy)
     print(f"profile of one {label} round (profiler on): {wall_s:.3f} s wall, "
@@ -1538,12 +1645,22 @@ def profile_round(torch, trainer, label):
           f"({busy_us / 1e6 / wall_s:.3f}), {len(spans)} device ops")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f"  {us / 1e3:9.3f} ms  {name[:100]}")
+    ranges_s = {}
     for name, intervals in ranges.items():
         if intervals:
             us = _overlap_us(busy, _merged(intervals))
+            ranges_s[name] = us / 1e6
             print(f"  {name}: {us / 1e3:.3f} ms of device time in "
                   f"{len(intervals)} calls, {us / busy_us:.3f} of device "
                   f"busy")
+    kernels_s = {pattern: sum(us for name, us in by_name.items()
+                              if re.search(pattern, name)) / 1e6
+                 for pattern in kernels}
+    for pattern, secs in kernels_s.items():
+        print(f"  kernels /{pattern}/: {secs * 1e3:.3f} ms of device time, "
+              f"{secs * 1e6 / busy_us:.3f} of device busy")
+    return dict(wall_s=wall_s, busy_s=busy_us / 1e6, ranges_s=ranges_s,
+                kernels_s=kernels_s)
 
 
 RING_TIMED = (1_356, 63_269, 169_997)  # the DCGAN, mamba2-130m, granite D
@@ -2145,7 +2262,8 @@ def driver_mismatch(host, fused):
 
 
 def compare_drivers(torch, label, make_trainer, n_rounds, *, want,
-                    peak=False, planted=False, keep=None, keep_gen=False):
+                    peak=False, planted=False, keep=None, keep_gen=False,
+                    kernel_mods=None, after_host=None):
     """`n_rounds` rounds of `make_trainer("host")`, then of
     `make_trainer("fused")`, under cuDNN's deterministic algorithms
     (`train_fused`), so that the two drivers run the same kernels on the
@@ -2158,21 +2276,33 @@ def compare_drivers(torch, label, make_trainer, n_rounds, *, want,
     must also fail on a fused run whose slots keep round 0's draws (a
     replay that is not refilled). With `keep`, the host run's records
     go to keep[label]; with `keep_gen` too, its generator's parameters,
-    on the host, to keep[label + " generator"]. Returns a summary for the `fused` JSON line."""
+    on the host, to keep[label + " generator"]. With `kernel_mods`
+    ({name: wrapper module}), every count is set to 0 just before the
+    host run and read just after its rounds (out["host_launches"]);
+    `after_host(trainer)` then runs on the host trainer (a profiled
+    round) and its result goes to out["after_host"]. Returns a summary
+    for the `fused` JSON line."""
     out, runs = {}, {}
     for driver in ("host", "fused"):
+        gc.collect()     # a former trainer's cycles hold device memory
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         trainer = make_trainer(driver)
         if trainer.driver != driver:
             raise AssertionError(f"{label}: driver {trainer.driver}")
+        if kernel_mods is not None and driver == "host":
+            zero_counts(kernel_mods)           # the path starts here
         recs, secs = zip(*(_timed_round(torch, trainer)
                            for _ in range(n_rounds)))
+        if kernel_mods is not None and driver == "host":
+            out["host_launches"] = kernel_counts(kernel_mods)  # ... ends
         out[f"{driver}_s"] = list(secs)
         if peak:
             out[f"{driver}_peak_gib"] = (torch.cuda.max_memory_allocated()
                                          / 2**30)
         runs[driver] = (recs, _params(trainer))
+        if after_host is not None and driver == "host":
+            out["after_host"] = after_host(trainer)
         if driver == "host":
             if keep_gen:
                 from repro_torch.tree import tree_map
@@ -3190,16 +3320,17 @@ def train_experiments(torch, shards, card, wavg_ops, robust_ops,
 # Phase 9: serving
 # ---------------------------------------------------------------------------
 
-# The serving paths: granite-3-2b at full width and depth (40 layers,
-# vocabulary 49,155, the generator alone) behind the engine at batch 8,
+# The serving paths: granite-3-2b at full width, 8 of its 40 layers (cut
+# from full depth to make room for phase 11; vocabulary 49,155, the
+# generator alone) behind the engine at batch 8,
 # max_len 1,024, 16-token blocks, 32-token prefill chunks, on 16 seeded
 # requests (prompts of 16-512 tokens, 32-64 new, every other one at
 # temperature 0.8); gemma3-12b at full width, one 5:1 group and the
 # vocabulary cut to 32,768 (as phase 5g), on prompts of 1,100-1,500
 # tokens, so that chunked prefill wraps the 1,024-key rings.
-SERVE_GRANITE = dict(arch="granite-3-2b", layers=40, batch=8, max_len=1024,
+SERVE_GRANITE = dict(arch="granite-3-2b", layers=8, batch=8, max_len=1024,
                      block=16, chunk=32, requests=16, prompt=(16, 512),
-                     new=(32, 64), prefill=600, gen_size=2_638_657_536)
+                     new=(32, 64), prefill=600, gen_size=692_369_408)
 SERVE_GEMMA3 = dict(arch="gemma3-12b", layers=6, vocab=32_768, batch=2,
                     max_len=1600, block=16, chunk=32, requests=3,
                     prompt=(1100, 1500), new=(8, 16), gen_size=1_611_747_072)
@@ -3292,15 +3423,17 @@ def close_logits(torch, got, want, label):
     return err, scale
 
 
-def teacher_forced(torch, gan, params, cfg, prompt, tokens):
+def teacher_forced(torch, gan, params, cfg, prompt, tokens, mode="train"):
     """The full forward's logits before each of `tokens`, fed the prompt
-    and `tokens`: (len(tokens), vocab) float32."""
+    and `tokens`: (len(tokens), vocab) float32. mode="prefill" routes
+    every MoE token (serving's dropless forward; "train" drops at
+    capacity)."""
     import numpy as np
     seq = torch.from_numpy(np.concatenate(
         [np.asarray(prompt), np.asarray(tokens[:-1])]).astype(np.int64)).to(
         params["embed"]["table"].device)[None]
     with torch.no_grad():
-        logits = gan.generator_lm_apply(params, cfg, seq, mode="train",
+        logits = gan.generator_lm_apply(params, cfg, seq, mode=mode,
                                         remat=False)["logits"][0]
     return logits[len(prompt) - 1:].float()
 
@@ -3349,14 +3482,15 @@ def chunked_prefill(torch, gan, cfg, params, prompt, chunk, cache_len):
     return torch.cat(logits), caches
 
 
-def prefill_against_chunked(torch, gan, cfg, params, prompt, kernel,
+def prefill_against_chunked(torch, gan, cfg, params, prompt, names,
                             kernel_mods, n_decode=4, chunk=32):
-    """One `mode="prefill"` call on `prompt` (it launches `kernel`: the
-    flash attention or the SSD scan, with its final state), then
-    `n_decode` greedy decode steps from its caches (scalar cache_index);
-    the same prompt through the engine's chunked prefill and the same
-    tokens decoded at their positions. Logits held at SERVE_RTOL.
-    Returns the kernel's launches in the prefill call and the errors."""
+    """One `mode="prefill"` call on `prompt` (it launches the kernels
+    `names`: the flash attention, the SSD scan with its final state, or
+    both for a hybrid), then `n_decode` greedy decode steps from its
+    caches (scalar cache_index); the same prompt through the engine's
+    chunked prefill and the same tokens decoded at their positions.
+    Logits held at SERVE_RTOL. Returns {name: launches} of the prefill
+    call and the errors."""
     device = params["embed"]["table"].device
     n = len(prompt)
     toks = torch.as_tensor(prompt, device=device)[None]
@@ -3367,7 +3501,7 @@ def prefill_against_chunked(torch, gan, cfg, params, prompt, kernel,
                                      remat=False)
     torch.cuda.synchronize()
     launches = kernel_counts(kernel_mods)
-    if any(v for k, v in launches.items() if k != kernel):
+    if any(v for k, v in launches.items() if k not in names):
         raise AssertionError(f"prefill launched {launches}")
     ref, caches = chunked_prefill(torch, gan, cfg, params, prompt, chunk,
                                   n + n_decode)
@@ -3391,7 +3525,7 @@ def prefill_against_chunked(torch, gan, cfg, params, prompt, kernel,
             cur = a.argmax()
     zero_counts(kernel_mods)
     errs["decode"] = max(dec)
-    return launches[kernel], errs
+    return {name: launches[name] for name in names}, errs
 
 
 def serving_engine(torch, cfg, params, setting, *, paged, capture=True):
@@ -3407,7 +3541,8 @@ def serving_engine(torch, cfg, params, setting, *, paged, capture=True):
 
 
 def serve_granite(torch, kernel_mods, out):
-    """9a: granite-3-2b at full width and depth: the traffic through the
+    """9a: granite-3-2b at full width (SERVE_GRANITE's depth): the traffic
+    through the
     paged engine (captured), the dense engine (captured) and the paged
     engine stepped uncaptured; the greedy tokens against the full
     forward; one mode="prefill" call of 600 tokens against the engine's
@@ -3463,8 +3598,9 @@ def serve_granite(torch, kernel_mods, out):
     prompt = serving_traffic(cfg.vocab, dict(setting, requests=1,
                                              prompt=(setting["prefill"],) * 2),
                              seed=5)[0][0]
-    flash, errs = prefill_against_chunked(torch, gan, cfg, params, prompt,
-                                          "flash_attn", kernel_mods)
+    launched, errs = prefill_against_chunked(torch, gan, cfg, params, prompt,
+                                             ("flash_attn",), kernel_mods)
+    flash = launched["flash_attn"]
     if flash != cfg.n_layers:
         raise AssertionError(f"granite prefill: {flash} flash_attn "
                              f"launches, expected {cfg.n_layers}")
@@ -3614,8 +3750,9 @@ def serve_mamba2(torch, gen, directory, kernel_mods, out):
                                    f"mamba2 card rid {rid}")
     params = tree_map(lambda t: t.to("cuda"), gen)
     prompt = np.random.default_rng(6).integers(0, cfg.vocab, 512)
-    ssd, errs = prefill_against_chunked(torch, gan, cfg, params, prompt,
-                                        "ssd_scan", kernel_mods)
+    launched, errs = prefill_against_chunked(torch, gan, cfg, params, prompt,
+                                             ("ssd_scan",), kernel_mods)
+    ssd = launched["ssd_scan"]
     if ssd != cfg.n_layers:
         raise AssertionError(f"mamba2 prefill: {ssd} ssd_scan launches, "
                              f"expected {cfg.n_layers}")
@@ -4408,6 +4545,411 @@ ALLOC_CONFS = ("", "expandable_segments:True", "expandable_segments:True",
                "")
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the zoo: the MoE and hybrid families
+# ---------------------------------------------------------------------------
+
+# 11a granite-moe-3b-a800m (hf:ibm-granite/granite-3.0-3b-a800m-base) at
+# full width (d_model 1,536, 24 heads of 64 over 8, 40 experts top-8 of
+# 512, groups of 1,024 tokens), 32 layers cut to 2 so that K = 4
+# discriminators with Adam fit the card beside G (K D + G = 1.47 G
+# parameters); m = 4 sequences of 1,024 tokens of granite-3-2b's token
+# data (the same vocabulary, 49,155).
+ZOO_MOE = dict(arch="granite-moe-3b-a800m", k=4, n_d=2, n_g=2, m=4,
+               seq=1024, layers=2, sizes=(355_017_216, 279_320_064),
+               per_round=44)
+# 11b zamba2-2.7b (arXiv:2411.15242) at full width (d_model 2,560, 32
+# heads of 80, d_ff 10,240, Mamba-2 with 64 states and heads of 64): 9
+# groups cut to 2 (12 Mamba-2 layers, the shared block called twice), K =
+# 2, m = 4 sequences of 1,024 tokens, n_d = n_g = 1 (K D + G = 2.10 G
+# parameters); a round runs 7 backbone passes: 84 scans, 14 attentions.
+ZOO_HYBRID = dict(arch="zamba2-2.7b", k=2, n_d=1, n_g=1, m=4, seq=1024,
+                  layers=12, sizes=(754_245_440, 672_000_320),
+                  per_round=84, attn_per_round=14)
+# 11c mixtral-8x22b (arXiv:2401.04088) at full width (d_model 6,144, 48
+# heads of 128 over 8, 8 experts top-2 of 16,384, a window of 4,096
+# keys): one layer in G and in D, forward and backward only (a K=2 round
+# with float32 Adam needs (2 D + G) x 16 B = 135 GB before activations);
+# D's logits against the CPU at 520 tokens, then 8,192 tokens.
+ZOO_MIXTRAL = dict(arch="mixtral-8x22b", layers=1, disc_layers=1, b=1,
+                   seq=8192, check_seq=520,
+                   sizes=(2_945_255_424, 2_743_148_544))
+# 11d the generators of granite-moe-3b-a800m and zamba2-2.7b at full width
+# and depth (32 and 54 layers) behind the engine at batch 4, max_len 64,
+# 16-token blocks, 32-token prefill chunks: the serve CLI's 4 demo
+# prompts (4-16 tokens, seed 0), 20 greedy tokens each, so that every
+# request crosses a block boundary; one mode="prefill" call against the
+# chunked prefill: zamba2's of 520 tokens (past the flash threshold),
+# granite-moe's of 512, the most that routes dropless exactly at top-8
+# (4,096 pairs; past it the capacity dispatch with factor 2 drops pairs
+# where the router crowds an expert, as in the JAX package, which the
+# 32-token chunks never do).
+SERVE_ZOO = dict(batch=4, max_len=64, block=16, chunk=32, demo=4, new=20,
+                 prefill={"granite-moe-3b-a800m": 512, "zamba2-2.7b": 520},
+                 sizes={"granite-moe-3b-a800m": 3_376_851_456,
+                        "zamba2-2.7b": 2_429_551_520})
+ZOO_RANGES = ("moe.dispatch", "moe.experts", "moe.combine",
+              "moe.gather.backward", "FlashAttention.backward",
+              "SSDScan.backward")
+
+
+def zoo_trainer(bb, cfg, shards, driver):
+    """A Trainer of a phase 11 backbone-GAN: Adam at 1e-3, 16-bit uplink,
+    every device scheduled, fading off (the drivers then draw the same
+    masks), each pass whole (remat off)."""
+    from repro_torch.configs import ProtocolConfig
+    from repro_torch.core import Trainer
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.models import gan
+    from repro_torch.models.specs import make_backbone_spec
+    pcfg = ProtocolConfig(n_devices=bb["k"], n_d=bb["n_d"], n_g=bb["n_g"],
+                          sample_size=bb["m"], server_sample_size=bb["m"],
+                          lr_d=1e-3, lr_g=1e-3, optimizer="adam",
+                          schedule="serial", scheduler="all")
+    return Trainer(make_backbone_spec(cfg, bb["seq"], remat=False,
+                                      gen_loss_variant="nonsaturating"),
+                   pcfg, lambda g: gan.gan_init(g, cfg), shards, seed=0,
+                   driver=driver,
+                   channel_cfg=ChannelConfig(n_devices=bb["k"],
+                                             fading=False))
+
+
+def zoo_train(torch, bb, shards, kernel_mods, want):
+    """11a / 11b: 2 rounds of the host driver (the path: every launch
+    count at 0 just before, read just after), one more host round
+    profiled (ZOO_RANGES), then 2 rounds of the fused driver (the second
+    a replay) bitwise equal to the host's (`compare_drivers`, under
+    cuDNN's deterministic algorithms), and one replay profiled: `want`
+    launches by kernel a round. Returns the path's launches and the
+    summary."""
+    from repro_torch.core.protocol import count_params
+    cfg = backbone_config(bb)
+
+    def make(driver):
+        trainer = zoo_trainer(bb, cfg, shards, driver)
+        sizes = tuple(count_params(trainer.state[p]) for p in ("gen", "disc"))
+        if sizes != bb["sizes"]:
+            raise AssertionError(f"{cfg.name} sizes {sizes}")
+        return trainer
+
+    def profiled(trainer):
+        return profile_round(torch, trainer, f"{cfg.name} host",
+                             ranges=ZOO_RANGES, kernels=(
+                                 r"flash_attn_kernel", r"ssd_\w+_kernel",
+                                 r"gemm|Gemm|sm90_xmma|cutlass"))
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        out = compare_drivers(torch, cfg.name, make, 2, want=want,
+                              peak=True, kernel_mods=kernel_mods,
+                              after_host=profiled)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    launches = {k: v for k, v in out["host_launches"].items() if v}
+    expect = {"wavg": 2, **{("ssd_scan" if k.startswith("ssd_") else k): 2 * n
+                           for k, n in want.items() if k != "wavg"}}
+    if launches != expect:
+        raise AssertionError(f"{cfg.name}: host rounds launched {launches}, "
+                             f"expected {expect}")
+    prof = out["after_host"]
+    if prof is not None:
+        split = {**prof["ranges_s"], **prof["kernels_s"]}
+        print(f"11 {cfg.name}: one profiled host round {prof['wall_s']:.3f} "
+              f"s wall, {prof['busy_s']:.3f} s device busy; device s by "
+              f"part: " + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
+    print(f"11 {cfg.name} ({cfg.n_layers} layers, K={bb['k']}, seq_len "
+          f"{bb['seq']}): host {[round(x, 4) for x in out['host_s']]} s a "
+          f"round, fused {[round(x, 4) for x in out['fused_s']]}; peak host "
+          f"{out['host_peak_gib']:.2f} GiB, fused {out['fused_peak_gib']:.2f} "
+          f"GiB; launches in the host rounds {launches}")
+    return launches, out
+
+
+def check_mixtral(torch, flash_ops):
+    """11c, mixtral-8x22b at full width, one layer in G and D: at
+    ZOO_MIXTRAL's 8,192 tokens D on real tokens, G, D on G's output, the
+    backward of D's objective into D and G (the path: 3 flash_attn
+    launches, each with the window of 4,096 keys), finite gradients, the
+    peak device memory; then D's logits at 520 tokens on the card against
+    the port on the CPU from the same parameters (rtol 1e-4). Returns the
+    path's launches and the summary."""
+    import numpy as np
+    from repro_torch.core import protocol
+    from repro_torch.models import gan
+    from repro_torch.models.specs import make_backbone_spec
+    from repro_torch.tree import tree_leaves, tree_map
+    bb = ZOO_MIXTRAL
+    cfg = backbone_config(bb)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = gan.gan_init(torch.Generator("cuda").manual_seed(0), cfg)
+    sizes = tuple(protocol.count_params(params[p]) for p in ("gen", "disc"))
+    if sizes != bb["sizes"]:
+        raise AssertionError(f"{cfg.name} sizes {sizes}")
+    for x in tree_leaves(params):
+        x.requires_grad_(True)
+    spec = make_backbone_spec(cfg, bb["seq"], remat=False,
+                              gen_loss_variant="nonsaturating")
+    tokens = torch.as_tensor(np.random.default_rng(4).integers(
+        0, cfg.vocab, (bb["b"], bb["seq"])), device="cuda")
+    z = spec.sample_z(torch.Generator("cuda").manual_seed(1), bb["b"])
+    windows = []
+    wrapper = flash_ops.flash_attention
+
+    def recording(q, k, v, *, causal=True, window=None):
+        windows.append(window)
+        return wrapper(q, k, v, causal=causal, window=window)
+
+    flash_ops.flash_attention = recording
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flash_ops.launches = 0                     # the path starts here
+        real = spec.disc_real(params["disc"], tokens)
+        fake = spec.disc_fake(params["disc"],
+                              spec.gen_apply(params["gen"], z))
+        objective = (torch.nn.functional.softplus(-real).mean()
+                     + torch.nn.functional.softplus(fake).mean())
+        torch.cuda.synchronize()
+        forward_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        objective.backward()
+        torch.cuda.synchronize()
+        backward_s = time.perf_counter() - t0
+        launches = flash_ops.launches              # ... and ends here
+    finally:
+        flash_ops.flash_attention = wrapper
+    if launches != 3 or windows != [MIXTRAL_WINDOW] * 3:
+        raise AssertionError(f"{cfg.name}: {launches} flash_attn launches, "
+                             f"windows {windows}")
+    unused = {id(x) for x in tree_leaves({k: params["gen"][k]
+                                          for k in ("embed", "lm_head")})}
+    grads = [x.grad for x in tree_leaves(params) if id(x) not in unused]
+    if any(g is None or not bool(torch.isfinite(g).all()) for g in grads):
+        raise AssertionError(f"{cfg.name}: a missing or non-finite "
+                             f"gradient")
+    if not bool(torch.isfinite(objective)):
+        raise AssertionError(f"{cfg.name}: objective {objective}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del real, fake, objective, grads
+    for x in tree_leaves(params):
+        x.grad = None
+        x.requires_grad_(False)
+    print(f"11c {cfg.name} (one layer in G and D, d_model {cfg.d_model}, "
+          f"{bb['b']} x {bb['seq']} tokens, window {cfg.window}): "
+          f"{sizes[0]} G / {sizes[1]} D parameters; forward (D real, G, D "
+          f"fake) {forward_s:.3f} s, backward into D and G "
+          f"{backward_s:.3f} s; {launches} flash_attn launches, each "
+          f"windowed; every gradient finite; peak device memory "
+          f"{peak:.2f} GiB")
+
+    check = make_backbone_spec(cfg, bb["check_seq"], remat=False,
+                               gen_loss_variant="nonsaturating")
+    short = tokens[:, :bb["check_seq"]]
+    with torch.no_grad():
+        card = check.disc_real(params["disc"], short).cpu()
+    disc_cpu = tree_map(lambda x: x.detach().cpu(), params["disc"])
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        host = check.disc_real(disc_cpu, short.cpu())
+    cpu_s = time.perf_counter() - t0
+    torch.testing.assert_close(card, host, rtol=1e-4, atol=0)
+    print(f"11c {cfg.name} D logits on {bb['check_seq']} real tokens, card "
+          f"{card.tolist()} against the CPU {host.tolist()} (rtol 1e-4; the "
+          f"CPU forward {cpu_s:.2f} s on {torch.get_num_threads()} "
+          f"threads)")
+    del disc_cpu
+    return {"flash_attn": launches}, dict(
+        forward_s=forward_s, backward_s=backward_s, peak_gib=peak,
+        cpu_s=cpu_s, logits_card=card.tolist(), logits_cpu=host.tolist())
+
+
+def demo_work(vocab, setting):
+    """The serve CLI's demo requests (`launch/serve.py`, seed 0): prompts
+    of 4-16 tokens, `setting["new"]` greedy tokens each."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    return [(rng.integers(1, vocab, rng.integers(4, 17)).astype(np.int32),
+             setting["new"], 0.0) for _ in range(setting["demo"])]
+
+
+def serve_zoo_model(torch, name, kernels, kernel_mods, out):
+    """11d for one architecture at full width and depth: the demo requests
+    through the paged engine (captured), the dense one and the paged one
+    uncaptured (tokens, and the captured and uncaptured cache leaves,
+    bit for bit; no kernel launch in the engines); the greedy tokens held
+    to the dropless full forward up to the first near tie; one
+    mode="prefill" call of 520 tokens against the chunked prefill
+    (`kernels` launched, one a layer of each kind, flash_attn past its
+    threshold). Returns its launches."""
+    import numpy as np
+    from repro_torch.configs import get_arch_config
+    from repro_torch.core.protocol import count_params
+    from repro_torch.models import gan
+    from repro_torch.tree import tree_leaves
+    setting = SERVE_ZOO
+    cfg = get_arch_config(name)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = gan.generator_init(torch.Generator("cuda").manual_seed(0), cfg)
+    size = count_params(params)
+    if size != setting["sizes"][name]:
+        raise AssertionError(f"{name} generator {size}")
+    work = demo_work(cfg.vocab, setting)
+    runs = {}
+    for label, paged, capture in (("paged", True, True),
+                                  ("dense", False, True),
+                                  ("paged uncaptured", True, False)):
+        eng = serving_engine(torch, cfg, params, setting, paged=paged,
+                             capture=capture)
+        toks, wall, steps, _ = serve_traffic(torch, eng, work, kernel_mods)
+        runs[label] = dict(tokens=toks, wall=wall, steps=steps, engine=eng,
+                           steps_n=eng.dispatch_count,
+                           captures=eng.compile_count)
+        if label == "dense":
+            del eng, runs[label]["engine"]
+    paged, dense, eager = (runs[k] for k in ("paged", "dense",
+                                             "paged uncaptured"))
+    if not paged["tokens"] == dense["tokens"] == eager["tokens"]:
+        raise AssertionError(f"{name}: paged, dense and uncaptured tokens "
+                             f"differ")
+    for a, b in zip(tree_leaves(paged["engine"].caches),
+                    tree_leaves(eager["engine"].caches)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name}: captured and uncaptured cache "
+                                 f"leaves differ")
+    del paged["engine"], eager["engine"]
+    torch.cuda.empty_cache()
+    ties = {}
+    for rid, (prompt, _, _) in enumerate(work):
+        toks = paged["tokens"][rid]
+        ref = teacher_forced(torch, gan, params, cfg, prompt, toks,
+                             mode="prefill")
+        ties[rid] = held_until_tie(toks, ref.argmax(-1).tolist(), ref,
+                                   f"{name} rid {rid}")
+    prompt = np.random.default_rng(8).integers(0, cfg.vocab,
+                                               setting["prefill"][name])
+    launched, errs = prefill_against_chunked(torch, gan, cfg, params, prompt,
+                                             kernels, kernel_mods)
+    n_attn = sum(1 for k in cfg.group_pattern if k != "ssm")
+    flash = len(prompt) ** 2 > 512 * 512
+    want = {"flash_attn": cfg.n_groups_stack * n_attn * flash,
+            "ssd_scan": cfg.n_layers if cfg.ssm is not None else 0}
+    if launched != {k: want[k] for k in kernels}:
+        raise AssertionError(f"{name} prefill: {launched}, expected {want}")
+    dec_ms, n_dec = decode_only_ms(paged["steps"])
+    eager_ms, _ = decode_only_ms(eager["steps"])
+    n_tok = sum(len(t) for t in paged["tokens"].values())
+    out[name] = dict(
+        layers=cfg.n_layers, generator_params=size, tokens=n_tok,
+        paged_wall_s=paged["wall"], dense_wall_s=dense["wall"],
+        uncaptured_wall_s=eager["wall"], steps=paged["steps_n"],
+        captures=paged["captures"],
+        first_step_per_program_s={str(c): x for c, x in
+                                  _first_steps(paged["steps"]).items()},
+        decode_step_ms=dec_ms, decode_steps=n_dec,
+        uncaptured_decode_step_ms=eager_ms, first_near_tie=ties,
+        prefill_launches=launched, prefill_max_abs_err=errs,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    print(f"11d {name} ({cfg.n_layers} layers, {size:,} generator "
+          f"parameters): {len(work)} requests, {n_tok} tokens, paged = "
+          f"dense = uncaptured tokens and captured = uncaptured cache "
+          f"leaves bit for bit; paged {paged['wall']:.3f} s, dense "
+          f"{dense['wall']:.3f} s, uncaptured {eager['wall']:.3f} s; "
+          f"{paged['steps_n']} steps, {paged['captures']} captures; "
+          f"decode-only step replayed {dec_ms:.3f} ms (mean of {n_dec}), "
+          f"uncaptured {eager_ms:.3f} ms; greedy against the dropless full "
+          f"forward, first near tie by rid: {ties}; prefill of "
+          f"{len(prompt)} tokens: {launched}, logits max abs err {errs}; "
+          f"peak {out[name]['peak_gib']:.2f} GiB")
+    del params
+    torch.cuda.empty_cache()
+    return launched, paged["tokens"]
+
+
+def serve_zoo_cli(torch, tokens, kernel_mods, out):
+    """11d, the serve CLI: `launch.serve.main --arch zamba2-2.7b` at
+    SERVE_ZOO's settings on the card (its own random generator from seed
+    0, the same as the engine's above): its tokens are the paged
+    engine's `tokens`, bit for bit."""
+    import io
+    import re
+    from repro_torch.launch import serve
+    s = SERVE_ZOO
+    argv = ["--arch", "zamba2-2.7b", "--demo", str(s["demo"]), "--max-new",
+            str(s["new"]), "--batch", str(s["batch"]), "--max-len",
+            str(s["max_len"]), "--block-size", str(s["block"]),
+            "--prefill-chunk", str(s["chunk"]), "--device", "cuda"]
+    buf = io.StringIO()
+    zero_counts(kernel_mods)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        if serve.main(argv) != 0:
+            raise AssertionError("serve.main --arch zamba2-2.7b failed")
+    secs = time.perf_counter() - t0
+    if any(kernel_counts(kernel_mods).values()):
+        raise AssertionError(f"kernels inside the engine: "
+                             f"{kernel_counts(kernel_mods)}")
+    text = buf.getvalue()
+    got = {int(m.group(1)): json.loads(m.group(2))
+           for m in re.finditer(r"rid=(\d+): (\[.*\])", text)}
+    if got != tokens:
+        raise AssertionError(f"the serve CLI's zamba2 tokens {got} differ "
+                             f"from the engine's {tokens}")
+    out["zamba2-2.7b serve CLI"] = dict(seconds=secs)
+    print(f"11d serve CLI --arch zamba2-2.7b on the card: {secs:.2f} s, the "
+          f"engine's tokens bit for bit; its summary: "
+          f"{text.strip().splitlines()[-1]}")
+    torch.cuda.empty_cache()
+
+
+def zoo_phase(torch, card, kernel_mods, moe_shards):
+    """Phase 11 on `card`: 11a granite-moe-3b-a800m on `moe_shards` (K=4
+    shards of granite-3-2b's token data), 11b zamba2-2.7b, 11c
+    mixtral-8x22b, 11d serving. Returns the launches of each path by
+    kernel: "moe", "hybrid", "mixtral", and "serving" (11d's
+    mode="prefill" calls)."""
+    t0 = time.perf_counter()
+    gc.collect()         # what earlier phases left in reference cycles
+    torch.cuda.empty_cache()
+    out, launches = {}, {}
+    launches["moe"], out["granite-moe-3b-a800m"] = zoo_train(
+        torch, ZOO_MOE, moe_shards, kernel_mods,
+        want={"wavg": 1, "flash_attn": ZOO_MOE["per_round"]})
+    stamp("zoo: granite-moe-3b-a800m")
+    bb = ZOO_HYBRID
+    _, shards = token_shards(bb, backbone_config(bb))
+    launches["hybrid"], out["zamba2-2.7b"] = zoo_train(
+        torch, bb, shards, kernel_mods,
+        want={"wavg": 1, "flash_attn": bb["attn_per_round"],
+              **{name: bb["per_round"] for name in SSD_KERNELS}})
+    del shards
+    stamp("zoo: zamba2-2.7b")
+    launches["mixtral"], out["mixtral-8x22b"] = check_mixtral(
+        torch, kernel_mods["flash_attn"])
+    stamp("zoo: mixtral-8x22b")
+    serving = {}
+    moe, _ = serve_zoo_model(torch, "granite-moe-3b-a800m", ("flash_attn",),
+                             kernel_mods, out)   # 512 tokens: flash idle
+    hybrid, tokens = serve_zoo_model(torch, "zamba2-2.7b",
+                                     ("flash_attn", "ssd_scan"), kernel_mods,
+                                     out)
+    serve_zoo_cli(torch, tokens, kernel_mods, out)
+    for part in (moe, hybrid):
+        for k, n in part.items():
+            serving[k] = serving.get(k, 0) + n
+    launches["serving"] = serving
+    stamp("zoo: serving")
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"zoo phase on {card}: {out['phase_s']:.1f} s")
+    print(json.dumps({"zoo": out}, default=float))
+    return launches
+
+
 def host_rounds(torch):
     """`--host-rounds`: seconds a host-driver round in this process, under
     the PYTORCH_CUDA_ALLOC_CONF it was started with: the full DCGAN
@@ -4493,6 +5035,10 @@ def main() -> int:
         "--tp-only", action="store_true",
         help="after phase 2, run phase 10 alone (with its own tp=1 "
              "serving reference in place of phase 9a's), and stop")
+    parser.add_argument(
+        "--zoo-only", action="store_true",
+        help="after phase 2, run phase 11 alone (with granite-3-2b's "
+             "token data made for it), and stop")
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -4547,6 +5093,15 @@ def main() -> int:
     if args.allocator_ab:
         allocator_ab(card)
         stamp("allocator A/B")
+        return 0
+    if args.zoo_only:
+        kernel_mods = {"wavg": ops, "trimmed_wavg": robust_ops,
+                       "ssd_scan": ssd_ops, "flash_attn": flash_ops,
+                       "ring_accum": ring_ops}
+        shards = token_shards(GRANITE, backbone_config(GRANITE))[1]
+        print(json.dumps({"zoo_launches": zoo_phase(torch, card, kernel_mods,
+                                                     shards)}))
+        stamp("zoo")
         return 0
 
     # 3. kernels
@@ -4688,6 +5243,21 @@ def main() -> int:
         entry["launches_by_path"]["tp"] = n
         entry["launches"] += n
     stamp("tensor parallelism")
+
+    # 11. the zoo: granite-moe-3b-a800m and zamba2-2.7b through both
+    # drivers, mixtral-8x22b's layer forward and backward, both
+    # generators served at full depth (11d's mode="prefill" calls join
+    # the "serving" path)
+    zoo = zoo_phase(torch, card, kernel_mods, tokens["granite"])
+    for entry in (wavg, trimmed, ssd, flash, ring):
+        for path in ("moe", "hybrid", "mixtral"):
+            n = zoo[path].get(entry["name"], 0)
+            entry["launches_by_path"][path] = n
+            entry["launches"] += n
+        n = zoo["serving"].get(entry["name"], 0)
+        entry["launches_by_path"]["serving"] += n
+        entry["launches"] += n
+    stamp("zoo")
 
     print(json.dumps({"kernels": [wavg, trimmed, ssd, flash, ring]}))
     print(json.dumps({"ok": True, "device": {

@@ -9,12 +9,15 @@ from repro_torch.configs.base import (ArchConfig, MoEConfig, ProtocolConfig,
 from repro_torch.configs.dcgan import DCGANConfig
 
 # Canonical (dashed) ids of the ported architectures, mapped to modules:
-# every dense and ssm config of the JAX package. It registers five more
-# (the MoE, hybrid, encoder-decoder and vision families); they wait for
-# ROADMAP A13.
+# every dense, ssm, moe and hybrid config of the JAX package, in its
+# order. It registers two more, whisper-base (encoder-decoder) and
+# llama-3.2-vision-90b (vision); they wait for ROADMAP A13.
 CANONICAL = {"mamba2-130m": "mamba2_130m",
+             "mixtral-8x22b": "mixtral_8x22b",
              "granite-3-2b": "granite_3_2b",
              "qwen3-1.7b": "qwen3_1_7b",
+             "granite-moe-3b-a800m": "granite_moe_3b_a800m",
+             "zamba2-2.7b": "zamba2_2_7b",
              "gemma3-12b": "gemma3_12b",
              "minitron-4b": "minitron_4b"}
 
@@ -26,8 +29,9 @@ def get_arch_config(name: str):
         return DCGANConfig()
     mod_name = CANONICAL.get(name, name.replace("-", "_").replace(".", "_"))
     if mod_name not in CANONICAL.values():
-        raise KeyError(f"architecture {name!r} is not ported (ROADMAP A13); "
-                       f"the port has {sorted(CANONICAL)} and 'dcgan'")
+        raise KeyError(f"architecture {name!r} is not ported (ROADMAP A13: "
+                       f"the encoder-decoder and vision families); the "
+                       f"port has {sorted(CANONICAL)} and 'dcgan'")
     return importlib.import_module(f"repro_torch.configs.{mod_name}").config()
 
 

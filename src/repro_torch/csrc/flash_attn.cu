@@ -57,13 +57,19 @@
 // warps an SM at D 64 and 128):
 //   D  32: 1 warpgroup,  64-key tiles,  90,368 B, 192 / 191: 2 blocks an SM
 //   D  64: 2 warpgroups, 64-key tiles, 213,504 B, 213 / 214: 1 block an SM
+//   D  80: 2 warpgroups, 32-key tiles, 174,720 B:              1 block an SM
 //   D 128: 2 warpgroups, 16-key tiles, 205,824 B, 201 / 211: 1 block an SM
 //   D 256: 1 warpgroup,   8-key tiles, 206,848 B, 208 / 208: 1 block an SM
 //
 // Layouts: q (b, s, H, D); k, v (b, s, KV, D); float32 or bfloat16, unit
 // stride in D, 16-byte aligned with strides of whole 16 bytes (the
 // wrapper copies what is not). out (b, s, H, D) float32, contiguous; lse
-// (b, H, s) float32, contiguous. D is 32, 64, 128 or 256.
+// (b, H, s) float32, contiguous. D is 32, 64, 80, 128 or 256.
+//
+// Every loop over D steps by 8 (a k-step of Q K^T, a column block of the
+// accumulator) or by a 16-byte chunk (4 floats, 8 bfloat16s), so any D
+// that is a multiple of 8 tiles whole; D 80 (zamba2-2.7b: 2,560 / 32)
+// runs P V as one m64n80k8 product a k-step.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -121,11 +127,14 @@ struct Cfg<32> : Tiles<32, 1, 64, 2> {};
 template <>
 struct Cfg<64> : Tiles<64, 2, 64, 1> {};
 template <>
+struct Cfg<80> : Tiles<80, 2, 32, 1> {};
+template <>
 struct Cfg<128> : Tiles<128, 2, 16, 1> {};
 template <>
 struct Cfg<256> : Tiles<256, 1, 8, 1> {};
 static_assert(Cfg<32>::SMEM == 90368 && Cfg<64>::SMEM == 213504 &&
-                  Cfg<128>::SMEM == 205824 && Cfg<256>::SMEM == 206848,
+                  Cfg<80>::SMEM == 174720 && Cfg<128>::SMEM == 205824 &&
+                  Cfg<256>::SMEM == 206848,
               "the source note's shared memory");
 
 // Byte offset of element (row, k) of a K-major operand with stride `sbo`.
@@ -462,6 +471,8 @@ extern "C" int flash_attn(const void* q, const void* k, const void* v,
       return bf16 ? launch<__nv_bfloat16, 32>(a, st) : launch<float, 32>(a, st);
     case 64:
       return bf16 ? launch<__nv_bfloat16, 64>(a, st) : launch<float, 64>(a, st);
+    case 80:
+      return bf16 ? launch<__nv_bfloat16, 80>(a, st) : launch<float, 80>(a, st);
     case 128:
       return bf16 ? launch<__nv_bfloat16, 128>(a, st) : launch<float, 128>(a, st);
     case 256:

@@ -35,7 +35,7 @@ from repro_torch.nn.flash_ref import flash_backward
 launches = 0
 
 # head_dim values the kernel is instantiated for
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 80, 128, 256)
 
 # The C entry point's parameters: q, k, v, out, lse, stream; b, s, H, KV,
 # D, causal, window (0: none), bf16; the strides of q, k and v over

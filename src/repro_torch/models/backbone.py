@@ -1,5 +1,5 @@
 """The grouped backbone (port of `repro.models.backbone`) for the
-`dense` and `ssm` families.
+dense, moe, ssm and hybrid families.
 
 A backbone is a repeated group of sublayers (`cfg.group_pattern`),
 `cfg.n_groups_stack` times, with every parameter stacked on a leading
@@ -9,14 +9,23 @@ the uplink quantizer scales (one scale per leaf) and what Algorithm 2
 averages, so keeping the JAX tree keeps the uploads identical; the loop
 indexes group i of each stacked leaf.
 
-Dense groups are ("attn",), or a local:global pattern of sliding-window
-and full attention. Modes: "train" (the full sequence), "prefill" (the
-full sequence, and the decode caches it leaves), "decode" (tokens at
-any positions against caches, updated in place). Other families (moe,
-hybrid, encdec, vlm) raise NotImplementedError (ROADMAP A13), and so do
-cross caches and encoder states. `tp_axis` runs every dense feed-forward
-Megatron-style on a model group's rank, in every mode; attention, norms
-and the Mamba-2 mixers replicate, as in the JAX package.
+  dense   ("attn",), or a local:global pattern of sliding-window and
+          full attention
+  moe     ("attn",) with the routed feed-forward (`nn.moe`)
+  ssm     ("ssm",)
+  hybrid  ("ssm",) * attn_every + ("shared_attn",): one attention + MLP
+          block, `params["shared"]`, called once a group (its group
+          subtree is empty, as in JAX), its gradient the sum over the
+          calls; each call keeps its own decode cache
+
+Modes: "train" (the full sequence), "prefill" (the full sequence, and
+the decode caches it leaves), "decode" (tokens at any positions against
+caches, updated in place). Serving (prefill, decode) routes every MoE
+token (dropless). The encoder-decoder and vision families raise
+NotImplementedError (ROADMAP A13), and so do cross caches and encoder
+states. `tp_axis` runs every dense feed-forward Megatron-style on a
+model group's rank, in every mode; attention, norms, MoE experts and
+the Mamba-2 mixers replicate, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -31,8 +40,8 @@ from repro_torch.models import blocks
 from repro_torch.tree import tree_index, tree_stack
 
 
-_FAMILIES = ("dense", "ssm")
-_ATTN = ("attn", "attn_local", "attn_global")
+_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+_ATTN = ("attn", "attn_local", "attn_global", "shared_attn")
 
 
 def _check_family(cfg: ArchConfig):
@@ -43,6 +52,8 @@ def _check_family(cfg: ArchConfig):
 
 
 def _sublayer_init(generator: torch.Generator, cfg: ArchConfig, kind: str):
+    if kind == "shared_attn":
+        return {}    # its parameters live in params["shared"]
     if kind in _ATTN:
         return blocks.attn_layer_init(generator, cfg)
     return blocks.ssm_layer_init(generator, cfg)
@@ -57,9 +68,12 @@ def backbone_init(generator: torch.Generator, cfg: ArchConfig):
                 for i, kind in enumerate(pattern)}
 
     groups = tree_stack([one_group() for _ in range(cfg.n_groups_stack)])
-    return {"groups": groups,
-            "final_norm": blocks._norm_init(cfg, cfg.d_model,
-                                            device=generator.device)}
+    params = {"groups": groups,
+              "final_norm": blocks._norm_init(cfg, cfg.d_model,
+                                              device=generator.device)}
+    if "shared_attn" in pattern:
+        params["shared"] = blocks.attn_layer_init(generator, cfg)
+    return params
 
 
 # ---------------------------------------------------------------------------
@@ -90,8 +104,9 @@ def _ssm_cache(cfg: ArchConfig, batch: int, dtype, device):
 def sublayer_cache_shape(cfg: ArchConfig, kind: str, batch: int,
                          cache_len: int, dtype, device=None):
     """Zeroed decode cache of one sublayer (the JAX package's tree and
-    leaf names): attention {"k", "v", "pos", "valid"} of cache_len slots
-    (at most the window's), Mamba-2 {"ssm" (always float32), "conv"}."""
+    leaf names): attention, the shared block's calls included, {"k",
+    "v", "pos", "valid"} of cache_len slots (at most the window's),
+    Mamba-2 {"ssm" (always float32), "conv"}."""
     if kind in _ATTN:
         window = cfg.sublayer_window(kind)
         length = cache_len if window is None else min(window, cache_len)
@@ -149,25 +164,28 @@ def _kv_to_cache(kv, positions, window, cache_len: int):
 
 
 def _run_sublayer(params_i, cfg: ArchConfig, kind: str, h, *, inv_freq,
-                  positions, cache, cache_index, mode: str, cache_len: int,
-                  ssd_scan_impl, cache_write_mask, paged_table, tp_axis):
+                  positions, cache, cache_index, shared_params, mode: str,
+                  cache_len: int, ssd_scan_impl, cache_write_mask,
+                  paged_table, tp_axis):
     """One sublayer. Returns (h, aux, cache or None); decode updates the
     cache in place."""
     if kind in _ATTN:
+        p = shared_params if kind == "shared_attn" else params_i
         window = cfg.sublayer_window(kind)
+        dropless = mode != "train"      # serving never capacity-drops
         if mode == "decode":
             # only full-attention sublayers page (a sliding window is a
             # bounded per-slot ring already)
             return blocks.attn_layer_apply(
-                params_i, cfg, h, window=window, inv_freq=inv_freq,
+                p, cfg, h, window=window, inv_freq=inv_freq,
                 positions=positions, cache=cache, cache_index=cache_index,
                 cache_write_mask=cache_write_mask,
                 paged_table=paged_table if window is None else None,
-                tp_axis=tp_axis)
+                moe_dropless=dropless, tp_axis=tp_axis)
         h, aux, kv = blocks.attn_layer_apply(
-            params_i, cfg, h, window=window, inv_freq=inv_freq,
+            p, cfg, h, window=window, inv_freq=inv_freq,
             positions=positions, return_kv=mode == "prefill",
-            tp_axis=tp_axis)
+            moe_dropless=dropless, tp_axis=tp_axis)
         return h, aux, (None if kv is None else
                         _kv_to_cache(kv, positions, window, cache_len))
     if mode == "decode":
@@ -190,7 +208,8 @@ def backbone_apply(params, cfg: ArchConfig, h, *, mode: str = "train",
 
     mode: "train" | "prefill" | "decode". remat=True recomputes each
         group in the training backward (`torch.utils.checkpoint`, same
-        math).
+        math; the shared block's leaves are passed in, so its gradient
+        sums every group's call).
     positions: (b, s) absolute positions; default 0..s-1, or cache_index
         for every token in decode.
     caches, cache_index: decode state (`init_decode_caches`), updated in
@@ -206,7 +225,8 @@ def backbone_apply(params, cfg: ArchConfig, h, *, mode: str = "train",
         blocks over the model group ("model", or a process group):
         `params` then hold the model-axis SHARDS of w_in/w_gate/w_out
         (`sharding.rules.tp_leaf_dim`).
-    Returns dict(h=..., aux=..., caches=...): the prefill caches, the
+    Returns dict(h=..., aux=..., caches=...): aux the sum of the MoE
+    load-balance losses over the sublayers; the prefill caches, the
     updated decode caches, or None."""
     _check_family(cfg)
     if enc_h is not None:
@@ -227,7 +247,7 @@ def backbone_apply(params, cfg: ArchConfig, h, *, mode: str = "train",
                                     base=cfg.rope_base, device=h.device)
                 if any(kind in _ATTN for kind in pattern) else None)
 
-    def group_body(h, params_g, caches_g):
+    def group_body(h, params_g, shared_params, caches_g):
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         new = {}
         for i, kind in enumerate(pattern):
@@ -235,7 +255,8 @@ def backbone_apply(params, cfg: ArchConfig, h, *, mode: str = "train",
                 params_g[f"sub{i}"], cfg, kind, h, inv_freq=inv_freq,
                 positions=positions,
                 cache=None if caches_g is None else caches_g[f"sub{i}"],
-                cache_index=cache_index, mode=mode, cache_len=cache_len,
+                cache_index=cache_index, shared_params=shared_params,
+                mode=mode, cache_len=cache_len,
                 ssd_scan_impl=ssd_scan_impl,
                 cache_write_mask=cache_write_mask, paged_table=paged_table,
                 tp_axis=tp_axis)
@@ -244,16 +265,17 @@ def backbone_apply(params, cfg: ArchConfig, h, *, mode: str = "train",
                 new[f"sub{i}"] = new_i
         return h, aux, new
 
+    shared = params.get("shared")
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     prefilled = []
     for g in range(cfg.n_groups_stack):
         params_g = tree_index(params["groups"], g)
         caches_g = tree_index(caches, g) if mode == "decode" else None
         if mode == "train" and remat and torch.is_grad_enabled():
-            h, aux_g, _ = checkpoint(group_body, h, params_g, None,
+            h, aux_g, _ = checkpoint(group_body, h, params_g, shared, None,
                                      use_reentrant=False)
         else:
-            h, aux_g, new = group_body(h, params_g, caches_g)
+            h, aux_g, new = group_body(h, params_g, shared, caches_g)
             prefilled.append(new)
         aux = aux + aux_g
     h = blocks._norm_apply(cfg, params["final_norm"], h)

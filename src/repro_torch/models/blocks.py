@@ -1,11 +1,12 @@
 """Sublayer blocks composed by the grouped backbone (port of
-`repro.models.blocks` for the `dense` and `ssm` families).
+`repro.models.blocks` for the dense, moe, ssm and hybrid families).
 
 Each block is (init, apply) over a full residual sublayer; `apply`
 takes an optional cache or state and returns (h, aux, new cache, state
-or k/v), so the backbone treats train, prefill and decode alike. The MoE
-feed-forward, cross-attention and LayerNorm (whisper) variants wait for
-their families (ROADMAP A13).
+or k/v), so the backbone treats train, prefill and decode alike. The
+feed-forward of an attention layer is dense, or routed (`nn.moe`) when
+the config has `moe`. Cross-attention and LayerNorm (whisper) wait for
+the encoder-decoder and vision families (ROADMAP A13).
 """
 from __future__ import annotations
 
@@ -31,43 +32,43 @@ def _norm_apply(cfg: ArchConfig, params, x):
 
 
 # ---------------------------------------------------------------------------
-# Self-attention + dense feed-forward layer
+# Self-attention + feed-forward layer (dense or MoE)
 # ---------------------------------------------------------------------------
 
-def _refuse_moe(cfg: ArchConfig):
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: the MoE feed-forward is not "
-                                  f"ported (ROADMAP A13)")
-
-
 def attn_layer_init(generator: torch.Generator, cfg: ArchConfig):
-    _refuse_moe(cfg)
     device = generator.device
-    return {
+    params = {
         "ln_attn": _norm_init(cfg, cfg.d_model, device=device),
         "attn": nn.attention_init(
             generator, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
             cfg.resolved_head_dim, qk_norm=cfg.qk_norm,
             use_bias=cfg.use_attn_bias, fuse_qkv=cfg.fuse_proj),
         "ln_ff": _norm_init(cfg, cfg.d_model, device=device),
-        "ff": nn.mlp_init(generator, cfg.d_model, cfg.d_ff,
-                          gated=not cfg.use_attn_bias,
-                          use_bias=cfg.use_attn_bias,
-                          fuse_gate=cfg.fuse_proj),
     }
+    if cfg.moe is not None:
+        params["ff"] = nn.moe_init(generator, cfg.d_model,
+                                   cfg.moe.d_ff_expert, cfg.moe.n_experts)
+    else:
+        params["ff"] = nn.mlp_init(generator, cfg.d_model, cfg.d_ff,
+                                   gated=not cfg.use_attn_bias,
+                                   use_bias=cfg.use_attn_bias,
+                                   fuse_gate=cfg.fuse_proj)
+    return params
 
 
 def attn_layer_apply(params, cfg: ArchConfig, h, *, window, inv_freq,
                      positions=None, causal: bool = True, cache=None,
                      cache_index=None, cache_write_mask=None,
                      paged_table=None, return_kv: bool = False,
-                     tp_axis=None):
+                     moe_dropless: bool = False, tp_axis=None):
     """Returns (h, aux, new cache or k/v or None): the self-attention
-    sublayer, then the dense feed-forward, each residual. The cache
-    arguments select attention's serving paths (`nn.attention_apply`).
-    tp_axis runs the feed-forward Megatron-style on a model group's rank
-    (attention replicates over the model axis)."""
-    _refuse_moe(cfg)
+    sublayer, then the feed-forward, each residual; aux is the MoE
+    load-balance loss (0 for a dense feed-forward). The cache arguments
+    select attention's serving paths (`nn.attention_apply`);
+    moe_dropless routes every token (`nn.moe_apply(dropless=)`, the
+    serving path). tp_axis runs the dense feed-forward Megatron-style on
+    a model group's rank (attention and MoE replicate over the model
+    axis)."""
     x = _norm_apply(cfg, params["ln_attn"], h)
     out = nn.attention_apply(
         params["attn"], x, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
@@ -82,8 +83,16 @@ def attn_layer_apply(params, cfg: ArchConfig, h, *, window, inv_freq,
         attn_out, new_cache = out, None
     h = h + attn_out
     x = _norm_apply(cfg, params["ln_ff"], h)
-    h = h + nn.mlp_apply(params["ff"], x, tp_axis=tp_axis)
-    return h, torch.zeros((), dtype=torch.float32, device=h.device), new_cache
+    if cfg.moe is not None:
+        ff_out, aux = nn.moe_apply(
+            params["ff"], x, n_experts=cfg.moe.n_experts,
+            top_k=cfg.moe.top_k, capacity_factor=cfg.moe.capacity_factor,
+            group_size=cfg.moe.group_size, dispatch=cfg.moe.dispatch,
+            dropless=moe_dropless)
+    else:
+        ff_out = nn.mlp_apply(params["ff"], x, tp_axis=tp_axis)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return h + ff_out, aux, new_cache
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""The backbone-GAN (port of `repro.models.gan` for the `dense` and
-`ssm` families):
+"""The backbone-GAN (port of `repro.models.gan` for the dense, moe, ssm
+and hybrid families):
 
   Generator      noise z (b, s, d_z) --z_proj--> backbone --out_proj-->
                  synthetic embedding sequence (b, s, d_model). The same
@@ -11,7 +11,9 @@
                  scalar real/fake logit. Real token data enters through
                  the discriminator's own embedding table.
 
-Conditioned families (encoder-decoder, vision) wait for ROADMAP A13.
+The MoE load-balance loss comes back as `aux` from both nets; the GAN
+spec drops it, as in the JAX package. Conditioned families
+(encoder-decoder, vision: `enc_feats`) wait for ROADMAP A13.
 
 Also the minimal MLP-GAN (`mlp_gan_init`, `mlp_gan_spec`): the
 dispatch-bound model of the JAX package's `benchmarks/driver_bench.py`.

@@ -29,12 +29,13 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models.backbone import init_decode_caches
 from repro_torch.tree import tree_leaves
 
-_ATTN_KINDS = ("attn", "attn_local", "attn_global")
+_ATTN_KINDS = ("attn", "attn_local", "attn_global", "shared_attn")
 
 
 def paged_sub_names(cfg: ArchConfig) -> tuple:
     """The 'subI' entries of the group pattern that page: the
-    full-attention sublayers."""
+    full-attention sublayers (the hybrid's shared block's calls too,
+    each with its own pool)."""
     return tuple(
         f"sub{i}" for i, kind in enumerate(cfg.group_pattern)
         if kind in _ATTN_KINDS and cfg.sublayer_window(kind) is None)

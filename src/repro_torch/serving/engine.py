@@ -1,5 +1,6 @@
 """Continuous-batching serving engine for the generator as a causal LM
-(port of `repro.serving.engine`, for the `dense` and `ssm` families).
+(port of `repro.serving.engine`, for the dense, moe, ssm and hybrid
+families).
 
 One step per engine iteration covers the whole request mix:
 
@@ -44,8 +45,15 @@ checkpoint serves at any tp. Rank 0 hands out the finished requests
 gloo group the collectives go through the host, so the steps run
 uncaptured; capturing them under NCCL across cards waits for a machine
 with several (ROADMAP item 1). MoE and fuse_proj configs refuse tp > 1,
-as in the JAX package; the MoE, hybrid, encoder-decoder and vision
-families raise at any tp (A13).
+as in the JAX package; the encoder-decoder and vision families raise at
+any tp (A13). A step routes MoE tokens dropless (`nn.moe`) while its
+tokens times top_k stay within `nn.moe._DROPLESS_EXACT_LIMIT` (4,096):
+prefill_chunk x top_k for a prefill step, batch_size x top_k for a
+decode step. A request's tokens then do not depend on what else is in
+the batch. Past the limit, as in the JAX package, the step takes the
+capacity dispatch at a capacity factor of at least 2, which drops pairs
+where the router crowds an expert, so the tokens can depend on the
+chunking and on the batch.
 """
 from __future__ import annotations
 
@@ -176,7 +184,7 @@ class ServingEngine:
                 raise ValueError(
                     f"{cfg.name}: fuse_proj=True cannot be tensor-parallel "
                     f"(fused leaves have no per-shard name rule)")
-        _check_family(cfg)        # MoE, hybrid, encdec, vlm: ROADMAP A13
+        _check_family(cfg)        # encdec, vlm: ROADMAP A13
         self.cfg = cfg
         self.tp = tp
         self.tp_rank = 0

@@ -213,6 +213,29 @@ def test_plain_version_matches_jax_kernel_at_head_dim_256(s, window, dtype):
                                atol=2e-5 if dtype == "float32" else 0.05)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,window,causal", [(40, 9, True), (24, None, True),
+                                             (32, None, False)])
+def test_plain_version_matches_jax_kernel_at_head_dim_80(s, window, causal,
+                                                         dtype):
+    """zamba2-2.7b's head_dim (2,560 / 32 = 80, a multiple of 16 but not
+    of 32): the plain version against the Pallas kernel in interpret
+    mode, grouped-query."""
+    q, k, v = (normals(2, s, h, 80, seed=i)
+               for i, h in enumerate((4, 2, 2)))
+    jdtype = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    want = jflash_ops.flash_attention(
+        *(jnp.asarray(a, jdtype) for a in (q, k, v)), n_kv_heads=2,
+        causal=causal, window=window, bq=16, bk=16, interpret=True)
+    got = ops.flash_attention(*(torch.tensor(a).to(getattr(torch, dtype))
+                                for a in (q, k, v)), causal=causal,
+                              window=window)
+    assert got.shape == (2, s, 4, 80)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32),
+                               rtol=0,
+                               atol=2e-5 if dtype == "float32" else 0.05)
+
+
 def test_plain_lse_is_the_row_log_sum_exp():
     q, k, v = (torch.tensor(normals(1, 70, h, 32, seed=i))
                for i, h in enumerate((4, 2, 2)))
@@ -240,13 +263,13 @@ def test_ctypes_signature_matches_the_cuda_entry_point():
 
 def test_head_dims_are_the_entry_points_instances():
     """HEAD_DIMS, which the wrapper checks (it raises for any other
-    head_dim on the card), holds gemma3-12b's 256 and is the set of
-    head_dims the C entry point dispatches."""
+    head_dim on the card), holds gemma3-12b's 256 and zamba2-2.7b's 80
+    and is the set of head_dims the C entry point dispatches."""
     src = (pathlib.Path(ops.__file__).parents[2] / "csrc"
            / "flash_attn.cu").read_text()
     body = src[src.index('extern "C" int flash_attn('):]
     cases = tuple(int(d) for d in re.findall(r"case (\d+):", body))
-    assert ops.HEAD_DIMS == cases == (32, 64, 128, 256)
+    assert ops.HEAD_DIMS == cases == (32, 64, 80, 128, 256)
 
 
 def test_kernel_reads_aligned_views_in_place_and_copies_the_rest():
@@ -404,7 +427,8 @@ def test_attention_and_mlp_refuse_what_is_not_ported(tmp_path):
 
 # head_dim -> (warpgroups of 64 query rows a block, keys a tile), as
 # flash_attn.cu's Cfg
-KERNEL_TILES = {32: (1, 64), 64: (2, 64), 128: (2, 16), 256: (1, 8)}
+KERNEL_TILES = {32: (1, 64), 64: (2, 64), 80: (2, 32), 128: (2, 16),
+                256: (1, 8)}
 # P's A fragment column c of an 8-key step holds key PAIRED[c]: column t
 # is key 2t and column t + 4 key 2t + 1 (the order V^T holds them in)
 PAIRED = [0, 2, 4, 6, 1, 3, 5, 7]
@@ -483,12 +507,14 @@ def kernel_schedule(q, k, v, causal=True, window=None, mm=torch.matmul):
 
 # (D, s, window, causal): ragged last key and query tiles, GQA H=4 over
 # KV=2; s = 150 at D = 32 gives three 64-row warpgroups, the last one
-# ragged, and a window that skips whole key tiles
+# ragged, and a window that skips whole key tiles; D = 80 (zamba2-2.7b)
+# tiles D in steps of 8, not of 32
 SCHEDULE_CASES = {
     "d32-s150": (32, 150, None, True),
     "d32-s150-w9": (32, 150, 9, True),
     "d256-s45-w20": (256, 45, 20, True),
     "d256-s45-bidirectional": (256, 45, None, False),
+    "d80-s150-w40": (80, 150, 40, True),
 }
 
 

@@ -83,16 +83,19 @@ def test_arch_configs_match_jax():
         assert dataclasses.asdict(port) == dataclasses.asdict(ref)
         assert port.group_pattern == ref.group_pattern
         assert port.n_groups_stack == ref.n_groups_stack
-    # every dense and ssm config of the JAX package, and no other
-    assert list_archs() == ["mamba2-130m", "granite-3-2b", "qwen3-1.7b",
-                            "gemma3-12b", "minitron-4b"]
-    assert set(list_archs()) == {name for name in jlist_archs()
-                                 if jget_arch_config(name).family
-                                 in ("dense", "ssm")}
+    # every dense, ssm, moe and hybrid config of the JAX package, in its
+    # order, and no other
+    assert list_archs() == ["mamba2-130m", "mixtral-8x22b", "granite-3-2b",
+                            "qwen3-1.7b", "granite-moe-3b-a800m",
+                            "zamba2-2.7b", "gemma3-12b", "minitron-4b"]
+    assert list_archs() == [name for name in jlist_archs()
+                            if jget_arch_config(name).family
+                            in ("dense", "moe", "ssm", "hybrid")]
     assert dataclasses.asdict(get_arch_config("dcgan")) == \
         dataclasses.asdict(jget_arch_config("dcgan"))
-    with pytest.raises(KeyError, match="A13"):
-        get_arch_config("mixtral-8x22b")
+    for name in ("whisper-base", "llama-3.2-vision-90b"):
+        with pytest.raises(KeyError, match="A13"):
+            get_arch_config(name)
 
 
 def test_full_width_parameter_counts_and_shapes_match_jax():
@@ -181,10 +184,10 @@ def test_remat_gives_the_same_values_and_gradients():
 
 
 def test_backbone_refuses_what_is_not_ported(tmp_path):
-    moe = get_arch_config("qwen3-1.7b").reduced()
-    moe = dataclasses.replace(moe, family="moe")
-    hybrid = dataclasses.replace(TCFG, family="hybrid", attn_every=2)
-    for cfg in (moe, hybrid):
+    qwen = get_arch_config("qwen3-1.7b").reduced()
+    encdec = dataclasses.replace(qwen, family="encdec", n_enc_layers=2)
+    vlm = dataclasses.replace(qwen, family="vlm", cross_attn_every=2)
+    for cfg in (encdec, vlm):
         with pytest.raises(NotImplementedError, match="A13"):
             tbackbone.backbone_init(torch.Generator(), cfg)
         with pytest.raises(NotImplementedError, match="A13"):

@@ -207,11 +207,19 @@ def _round_matches_jax(variant, seq=SEQ):
     """One parallel Adam round (one local and one server step of one
     sample, 16-bit uplink, one device unscheduled) of `variant` at
     seq_len `seq` from the same state and draws."""
-    jcfg, _ = cfgs(variant)
-    jspec, tspec = specs(variant, seq)
+    round_matches_jax(*cfgs(variant), jax_params(variant), seq)
+
+
+def round_matches_jax(jcfg, tcfg, params, seq, remat=False):
+    """`_round_matches_jax` for the backbone-GAN of the JAX and port
+    configs `jcfg`, `tcfg` from the numpy parameters `params`; remat
+    recomputes each group in both packages' backwards."""
+    jspec, tspec = (
+        mod.make_backbone_spec(cfg, seq, remat=remat,
+                               gen_loss_variant="nonsaturating")
+        for mod, cfg in ((jspecs, jcfg), (tspecs, tcfg)))
     jpcfg, tpcfg = protocol_configs(schedule="parallel", optimizer="adam")
-    jstate = jprotocol.make_train_state(KEY, lambda k: jax_params(variant),
-                                        jpcfg, K)
+    jstate = jprotocol.make_train_state(KEY, lambda k: params, jpcfg, K)
     tstate = interop.to_torch(jax.device_get(jstate), "cpu")
     n_params = tprotocol.count_params(tstate["disc"])
     data = tokens(jcfg.vocab, seq=seq)

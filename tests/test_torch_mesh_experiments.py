@@ -1,7 +1,8 @@
 """The paper's experiments and the backbone families on the mesh layout
 (`run_experiment(layout="mesh")`, `fig5_fedgan --layout mesh`,
 `fedgan_compare --layout mesh`, `Trainer(layout="mesh")` on reduced
-mamba2-130m and granite-3-2b), each against its stacked twin, which
+mamba2-130m, granite-3-2b, granite-moe-3b-a800m and zamba2-2.7b at 2
+groups), each against its stacked twin, which
 the other port tests hold to the JAX package.
 
 Every mesh run is gloo ranks on the CPU, one a paper worker. Each figure
@@ -34,7 +35,11 @@ TIMEOUT_S = 150
 # the reduced backbone-GANs of the mesh rounds, 2 ranks
 BACKBONES = {"mamba2-130m": dict(arch="mamba2-130m", seq=40),
              "granite-3-2b": dict(arch="granite-3-2b", seq=24,
-                                  changes={"n_kv_heads": 2})}
+                                  changes={"n_kv_heads": 2}),
+             "granite-moe-3b-a800m": dict(arch="granite-moe-3b-a800m",
+                                          seq=24),
+             "zamba2-2.7b": dict(arch="zamba2-2.7b", seq=24,
+                                 changes={"n_layers": 12})}
 BACKBONE_RUNS = {
     "mamba2-130m": dict(algorithm="proposed", impl="ring", driver="host",
                         seed=1, faults=None,
@@ -49,6 +54,18 @@ BACKBONE_RUNS = {
                                    server_sample_size=2, lr_d=1e-3,
                                    lr_g=1e-3, optimizer="adam",
                                    schedule="parallel")),
+    # the MoE and hybrid families: the capacity dispatch in every
+    # forward, the shared block called twice
+    "granite-moe-3b-a800m": dict(
+        algorithm="proposed", impl="pallas", driver="host", seed=3,
+        faults=None, pcfg=dict(n_devices=2, n_d=1, n_g=1, sample_size=2,
+                               server_sample_size=2, lr_d=1e-3, lr_g=1e-3,
+                               optimizer="adam")),
+    "zamba2-2.7b": dict(
+        algorithm="proposed", impl="ring", driver="fused", seed=4,
+        faults=None, pcfg=dict(n_devices=2, n_d=1, n_g=1, sample_size=2,
+                               server_sample_size=2, lr_d=1e-3, lr_g=1e-3,
+                               optimizer="adam")),
 }
 
 
@@ -167,7 +184,9 @@ def test_fedgan_compare_mesh_matches_stacked(figures):
 def test_backbone_mesh_rounds_match_stacked(backbone_ranks, arch):
     """2 mesh rounds of a reduced backbone-GAN (mamba2-130m on the ring,
     host driver; granite-3-2b with 2 kv heads on the flat all-gather,
-    fused driver, parallel schedule) on 2 ranks against the stacked
+    fused driver, parallel schedule; granite-moe-3b-a800m on the flat
+    all-gather, host driver; zamba2-2.7b at 2 groups on the ring, fused
+    driver) on 2 ranks against the stacked
     Trainer of the same seed and driver: the records, the globals, and
     each rank's own Adam moments of the group-stacked discriminator as
     its row of the stacked ones."""

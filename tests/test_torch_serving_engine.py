@@ -328,9 +328,8 @@ def test_refusals_name_their_roadmap_items(tmp_path):
     # tests/test_torch_serving_tp.py serves on one)
     with pytest.raises(RuntimeError, match="no 'model' process group"):
         ServingEngine(qwen, None, tp=2, device="cpu")
-    for cfg in (moe, dataclasses.replace(qwen, family="encdec"),
-                dataclasses.replace(qwen, family="vlm"),
-                dataclasses.replace(qwen, family="hybrid")):
+    for cfg in (dataclasses.replace(qwen, family="encdec"),
+                dataclasses.replace(qwen, family="vlm")):
         with pytest.raises(NotImplementedError, match="A13"):
             ServingEngine(cfg, None, device="cpu")
     _, params = model("qwen3-1.7b")

@@ -93,8 +93,14 @@ def test_tp_tree_dims_match_jax(arch, tp):
         assert (rules.tp_local_size(port[key], tp)
                 == jrules.tp_local_size(ref[key], tp))
     dims = rules.tp_tree_dims(port["disc"], tp)
-    # the MLPs shard; mamba2-130m has none: all of it replicates
-    assert any(d is not None for d in dims) == (arch != "mamba2-130m")
+    # the dense MLPs shard (zamba2-2.7b's shared block's too); mamba2-130m
+    # has none, and MoE experts replicate: all of those replicate, as in
+    # JAX
+    sharded = any(d is not None for d in dims)
+    assert sharded == any(d is not None for d in
+                          jrules.tp_tree_dims(ref["disc"], tp))
+    assert sharded == (arch not in ("mamba2-130m", "mixtral-8x22b",
+                                    "granite-moe-3b-a800m"))
     if arch == "mlp-gan":
         assert dims == (-1, -2)               # w_in column, w_out row
 
