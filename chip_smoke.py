@@ -12,6 +12,8 @@
     python3 chip_smoke.py --tp-only      # phases 1-2, then phase 10 with
                                          # its own tp=1 serving reference
     python3 chip_smoke.py --zoo-only     # phases 1-2, then phase 11
+    python3 chip_smoke.py --conditioned-only  # phases 1-2, phase 3's
+                                         # flash_attn check, then phase 12
 
 Phases, in order; any failure exits non-zero:
   1. device   the card's name and power limit (nvidia-smi); TF32 off for
@@ -29,17 +31,27 @@ Phases, in order; any failure exits non-zero:
               kind and both KMAX buckets), N % 4 != 0 and a payload 4
               bytes off 16-byte alignment (the scalar path), its HBM
               share beside wavg's on the same payload, and the honest
-              rows' range; flash_attn at 40 shapes, D 32-256 with
+              rows' range; flash_attn at 70 shapes, D 32-256 with
               zamba2-2.7b's D 80 (ragged tiles, windows, bidirectional,
               bf16, strided and unaligned q; phase 11's shapes:
               granite-moe-3b-a800m's round, zamba2-2.7b's round and
               prefill of 520 tokens, mixtral-8x22b's 520 and 8,192
-              tokens in a 4,096-key window), its refusal of D 96,
-              timed at the main shape, qwen3-1.7b's heads, gemma3-12b's
-              D 256, minitron-4b's shape, gemma3-12b's windowed local
-              layers (2 x 2048 tokens, window 1024) and zamba2-2.7b's D
-              80 beside SDPA (an explicit boolean mask for the window),
-              each SDPA call first held to the plain version;
+              tokens in a 4,096-key window; keys of a length t of their
+              own: t < s, t > s, ragged, 1 and below one key tile,
+              causal and windowed, bf16, at every head_dim; phase 12's
+              shapes: whisper-base's encoder and cross-attention,
+              llama-3.2-vision-90b's cross- and self-attention, its
+              logits check and both serving prefills), its refusal of
+              D 96, timed at the main shape, qwen3-1.7b's heads,
+              gemma3-12b's D 256, minitron-4b's shape, gemma3-12b's
+              windowed local layers (2 x 2048 tokens, window 1024),
+              zamba2-2.7b's D 80, and phase 12's whisper encoder (4 x
+              1,500 frames), whisper cross-attention (4 x 448 tokens
+              over 1,500 frames) and llama-vision cross-attention (2,048
+              tokens over 1,600 image tokens, D 128) beside SDPA (an
+              explicit boolean mask for the window; is_causal=False for
+              the bidirectional ones), each SDPA call first held to the
+              plain version;
               ssd_scan at 27 shapes (one chunk, 128 chunks, ragged last
               chunks, groups, p 32-128, n 16-160, bf16 x at the main
               shape, zamba2-2.7b's 80 heads of 64 with 64 states), timed
@@ -98,8 +110,9 @@ Phases, in order; any failure exits non-zero:
                  tokens, G, D on G's output, the backward of D's
                  objective into D and G; 18 flash_attn launches (15 with
                  the window of 1,024), finite gradients, the peak device
-                 memory, D's logits against the port on the CPU (rtol
-                 1e-4). Its GAN round waits for tensor parallelism or
+                 memory, D's logit of the first sequence against the port
+                 on the CPU (rtol 1e-4). Its GAN round waits for tensor
+                 parallelism or
                  bf16 (ROADMAP A items 8 and 10)
   6. profile  one more round of the DCGAN protocol (after 5b; that trainer
               is then freed), of the mamba2-130m backbone-GAN (after 5c;
@@ -114,7 +127,7 @@ Phases, in order; any failure exits non-zero:
               3 serial and 3 parallel rounds, round_robin at 0.5), its
               hostile path under the trimmed mean (3 rounds), FedGAN (2
               rounds), the MLP-GAN (K=8, rounds a second over 50 rounds),
-              mamba2-130m at full width,
+              mamba2-130m at full width (2 rounds),
               granite-3-2b (4 layers) and minitron-4b (2 layers) (K=4, 3
               rounds each, peak device memory), under cuDNN's
               deterministic algorithms: masks,
@@ -172,8 +185,8 @@ Phases, in order; any failure exits non-zero:
   9. serving  the engine (`repro_torch.serving`), each run with the
               launch counts at 0 (the engine launches no hand-written
               kernel, as the JAX engine reaches no Pallas kernel):
-              a. granite-3-2b at full width, 8 of its 40 layers (cut
-                 to make room for phase 11; vocabulary 49,155, the
+              a. granite-3-2b at full width, 4 of its 40 layers (cut
+                 to make room for phases 11 and 12; vocabulary 49,155, the
                  generator alone) at batch 8,
                  max_len 1,024, 16-token blocks, 32-token prefill chunks,
                  16 seeded requests (prompts 16-512, 32-64 new tokens,
@@ -223,7 +236,7 @@ Phases, in order; any failure exits non-zero:
                  rank and round 1 wavg and 20 flash_attn launches; peak
                  memory a rank and seconds a round; wavg timed at the
                  1/TP payload beside the whole one
-              c. 9a's granite-3-2b (8 layers) served at TP=2 on 2 ranks,
+              c. 9a's granite-3-2b (4 layers) served at TP=2 on 2 ranks,
                  loaded from a global-shaped checkpoint written here (as
                  `launch.serve` loads one), 9a's greedy requests through
                  the paged and the dense engine (uncaptured: gloo): each
@@ -250,7 +263,8 @@ Phases, in order; any failure exits non-zero:
                  flash_attn launches in the 4,096-key window), finite
                  gradients, peak memory; D's logits at 520 tokens
                  against the CPU (rtol 1e-4)
-              d. both generators at full depth (32 and 54 layers) behind
+              d. both generators (granite-moe at 8 of its 32 layers,
+                 zamba2 at full depth, 54) behind
                  the paged, dense and uncaptured engines (batch 4, 16-
                  token blocks, the serve CLI's 4 demo prompts, 20 greedy
                  tokens each): tokens and cache leaves bit for bit, the
@@ -260,6 +274,39 @@ Phases, in order; any failure exits non-zero:
                  launches join the "serving" path), and
                  `launch.serve --arch zamba2-2.7b` giving the engine's
                  tokens
+  12. conditioned  the encoder-decoder and vision families, their stub
+              frontend's features from `make_stub_enc_feats`:
+              a. whisper-base at full width and depth (6 decoder and 6
+                 encoder layers over 1,500 frames), K=4, m=4, seq_len 448,
+                 n_d=n_g=2, Adam, on granite-3-2b's token data cut to 448
+                 tokens: 3 host rounds (the "encdec" path, 264
+                 flash_attn launches a round: each net's 6 encoder layers
+                 and 6 cross-attentions), one more host round profiled
+                 (the encoder, the cross-attention and the flash
+                 backward), then 3 fused rounds bit for bit the host's and
+                 one replay profiled, under cuDNN's deterministic
+                 algorithms
+              b. llama-3.2-vision-90b at full width, one group (4 self +
+                 1 gated cross layer) in G and in D, vocabulary 32,768,
+                 the gates opened: G's forward and backward at 2,048
+                 tokens over 1,600 image tokens, then D's on real tokens
+                 and G's output (the "vlm" path: 15 flash_attn launches,
+                 their shapes checked), one net on the card at a time;
+                 finite gradients, the gates' and the cross k/v
+                 projections' non-zero; D's logits at 520 tokens against
+                 the CPU (rtol 1e-4)
+              c. whisper-base's generator at full depth (batch 8,
+                 max_len 448, 16 seeded requests) and llama-vision's
+                 group at its full vocabulary (batch 4, the demo
+                 prompts, 20 greedy tokens) behind the paged, dense and
+                 uncaptured engines, their cross caches filled once:
+                 tokens and cache leaves bit for bit, the greedy tokens
+                 against the full forward, one mode="prefill" (448 and
+                 600 tokens) against the chunked prefill (its launches
+                 join the "serving" path), the replayed decode step
+                 beside its weight-read bound
+              d. `repro_torch.examples.train_distgan` on the card, 2
+                 reduced rounds of each conditioned architecture
 The last two lines are the `kernels` JSON line and
 {"ok": true, "device": {...}}.
 """
@@ -341,6 +388,26 @@ FLASH_ZAMBA2_PREFILL = dict(FLASH_ZAMBA2, b=1, s=520)
 FLASH_MIXTRAL = dict(b=1, s=8192, h=48, kv=8, d=128)
 FLASH_MIXTRAL_CHECK = dict(FLASH_MIXTRAL, s=520)
 MIXTRAL_WINDOW = 4096
+# The attention of phase 12's paths, each bidirectional but the vlm's
+# self-attention: whisper-base's encoder over 1,500 frames and its
+# decoder's cross-attention from 448 tokens to them (12a's b = m = 4; 8
+# heads of 64; the decoder's causal self-attention, 448 x 448, stays
+# below the flash threshold); llama-3.2-vision-90b's cross-attention
+# from 2,048 tokens to 1,600 image tokens and its causal self-attention
+# (12b, b = 1, 64 heads of 128 over 8); 12b's logits check at 520
+# tokens; 12c's mode="prefill" calls: whisper's of 448 tokens (its
+# encoder at b = 1) and llama-vision's of 600 tokens.
+FLASH_WHISPER_ENC = dict(b=4, s=1500, t=1500, h=8, kv=8, d=64)
+FLASH_WHISPER_CROSS = dict(b=4, s=448, t=1500, h=8, kv=8, d=64)
+FLASH_VLM_CROSS = dict(b=1, s=2048, t=1600, h=64, kv=8, d=128)
+FLASH_VLM_SELF = dict(b=1, s=2048, h=64, kv=8, d=128)
+FLASH_COND_OTHER = (
+    ("whisper_prefill_encoder", dict(FLASH_WHISPER_ENC, b=1), False),
+    ("whisper_prefill_cross", dict(FLASH_WHISPER_CROSS, b=1), False),
+    ("vlm_check_self", dict(FLASH_VLM_SELF, s=520), True),
+    ("vlm_check_cross", dict(FLASH_VLM_CROSS, s=520), False),
+    ("vlm_prefill_self", dict(FLASH_VLM_SELF, s=600), True),
+    ("vlm_prefill_cross", dict(FLASH_VLM_CROSS, s=600), False))
 # zamba2-2.7b's Mamba-2 layers on 11b's 4 sequences of 1,024 tokens: 80
 # heads of 64 (d_inner 5,120), one group of 64 states
 SSD_ZAMBA2 = dict(b=4, s=1024, h=80, p=64, g=1, n=64, chunk=128)
@@ -723,18 +790,20 @@ def time_ssd(torch, ops, ref, ssm, gen, shape, label):
             "chunked_torch_ms": torch_ms, "kernels_device_ms": by_kernel}
 
 
-def flash_inputs(torch, gen, b, s, h, kv, d, *, dtype=None, strided=False,
-                 unaligned=False):
-    """q (b, s, h, d), k, v (b, s, kv, d) standard normal on the card, as
-    tests/test_kernels.py::TestFlashAttn draws them. strided=True slices
-    them out of one (b, s, h + 2 kv, d) tensor; unaligned=True starts q
-    one element past a 16-byte boundary (the wrapper copies it)."""
+def flash_inputs(torch, gen, b, s, h, kv, d, *, t=None, dtype=None,
+                 strided=False, unaligned=False):
+    """q (b, s, h, d), k, v (b, t, kv, d) (t = s by default) standard
+    normal on the card, as tests/test_kernels.py::TestFlashAttn draws
+    them. strided=True slices them out of one (b, s, h + 2 kv, d) tensor
+    (t = s); unaligned=True starts q one element past a 16-byte boundary
+    (the wrapper copies it)."""
     f = functools.partial(torch.randn, generator=gen, device="cuda")
+    t = s if t is None else t
     if strided:
         qkv = f((b, s, h + 2 * kv, d))
         q, k, v = qkv[:, :, :h], qkv[:, :, h:h + kv], qkv[:, :, h + kv:]
     else:
-        q, k, v = f((b, s, h, d)), f((b, s, kv, d)), f((b, s, kv, d))
+        q, k, v = f((b, s, h, d)), f((b, t, kv, d)), f((b, t, kv, d))
     if dtype is not None:
         q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
     if unaligned:
@@ -750,12 +819,15 @@ def causal_pairs(s, window=None):
     return w * (w + 1) // 2 + (s - w) * w
 
 
-def flash_cost(b, s, h, kv, d, window=None):
-    """(bytes, flop) of one causal call: q, k, v, out and lse once each;
-    the causal pairs (inside the window) of q.k and of p.v, 2 D flops
-    each per (row, key) pair."""
-    return (4 * (2 * b * s * h * d + 2 * b * s * kv * d + b * h * s),
-            4 * b * h * d * causal_pairs(s, window))
+def flash_cost(b, s, h, kv, d, window=None, t=None, causal=True):
+    """(bytes, flop) of one call of s queries over t keys (t = s by
+    default): q, k, v, out and lse once each; the (row, key) pairs it
+    computes, 2 D flops each of q.k and of p.v: the causal pairs (inside
+    the window) of a causal call, all s t of a bidirectional one."""
+    t = s if t is None else t
+    pairs = causal_pairs(s, window) if causal else s * t
+    return (4 * (2 * b * s * h * d + 2 * b * t * kv * d + b * h * s),
+            4 * b * h * d * pairs)
 
 
 def flash_bounds(n_bytes, flops):
@@ -815,6 +887,35 @@ def check_flash(torch, ops, ref):
               (FLASH_MIXTRAL, dict(window=MIXTRAL_WINDOW)),
               (FLASH_ZAMBA2_PREFILL, {}),
               (FLASH_ZAMBA2, {})]
+    # key lengths of their own (t != s, query i and key j at positions i
+    # and j): t < s, t > s, ragged, one key and below one key tile, causal
+    # and windowed (every query sees a key), bf16, and at each head_dim
+    # bidirectional and causal in bf16
+    cross_from = len(cases)
+    cases += [(dict(small, s=200, t=77), dict(causal=False)),
+              (dict(small, s=100, t=300), dict(causal=False)),
+              (dict(small, s=130, t=131), dict(causal=False)),
+              (dict(small, s=150, t=5), dict(causal=False)),
+              (dict(small, s=64, t=1), dict(causal=False)),
+              (dict(small, s=200, t=90), {}),
+              (dict(small, s=90, t=200), {}),
+              (dict(small, s=120, t=300), dict(window=50)),
+              (dict(small, s=200, t=150), dict(window=100)),
+              (dict(small, s=100, t=257), dict(causal=False, dtype=bf16))]
+    cases += [(dict(small, s=70, t=150, d=d), dict(causal=False))
+              for d in ops.HEAD_DIMS]
+    cases += [(dict(small, s=150, t=45, d=d), dict(dtype=bf16))
+              for d in ops.HEAD_DIMS]
+    # phase 12's shapes: whisper-base's encoder and cross-attention,
+    # llama-3.2-vision-90b's cross- and self-attention, the logits check
+    # and the serving prefills
+    cond = [("whisper_encoder", FLASH_WHISPER_ENC, False),
+            ("whisper_cross", FLASH_WHISPER_CROSS, False),
+            ("vlm_cross", FLASH_VLM_CROSS, False),
+            ("vlm_self", FLASH_VLM_SELF, True), *FLASH_COND_OTHER]
+    cases += [(shape, {} if causal else dict(causal=False))
+              for _, shape, causal in cond]
+    cross_to = len(cases)
     # minitron-4b's shape; gemma3-12b's local layers, where the window
     # bites
     cases += [(FLASH_MINITRON, {}),
@@ -839,11 +940,20 @@ def check_flash(torch, ops, ref):
         del q, k, v, out, lse, out_plain, lse_plain
     d256, d80 = ([e for i, e in max_err.items() if cases[i][0]["d"] == d]
                  for d in (256, 80))
+    cross_err = max(max_err[i] for i in range(cross_from, cross_to))
     print(f"flash_attn matches its plain version at {len(cases)} shapes, out "
           f"and lse (atol {FLASH_ATOL} f32, {FLASH_ATOL_BF16} bf16); max abs "
           f"err {max(max_err.values()):.3e}, at the main shape "
           f"{max_err[0]:.3e}, at D 256 {max(d256):.3e}, at D 80 "
-          f"{max(d80):.3e}")
+          f"{max(d80):.3e}, at the {cross_to - cross_from} shapes with a key "
+          f"length of their own (phase 12's among them) {cross_err:.3e}")
+    cond_err = {}
+    for name, shape, causal in cond:
+        cond_err[name] = max_err[cases.index(
+            (shape, {} if causal else dict(causal=False)))]
+        print(f"  flash_attn {name} {shape} "
+              f"{'causal' if causal else 'bidirectional'}: max abs err "
+              f"{cond_err[name]:.3e}")
     zoo_err = {name: max_err[cases.index((shape, kw))] for name, shape, kw in
                (("zamba2", FLASH_ZAMBA2, {}),
                 ("zamba2_prefill", FLASH_ZAMBA2_PREFILL, {}),
@@ -862,22 +972,28 @@ def check_flash(torch, ops, ref):
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     timed = {}
-    for name, shape, window in (
-            ("main", FLASH_MAIN, None), ("qwen3", FLASH_QWEN3, None),
-            ("gemma3", FLASH_GEMMA3, None), ("minitron", FLASH_MINITRON, None),
-            ("gemma3_local", FLASH_GEMMA3_LOCAL, GEMMA3_WINDOW),
-            ("zamba2", FLASH_ZAMBA2, None)):
+    for name, shape, window, causal in (
+            ("main", FLASH_MAIN, None, True), ("qwen3", FLASH_QWEN3, None, True),
+            ("gemma3", FLASH_GEMMA3, None, True),
+            ("minitron", FLASH_MINITRON, None, True),
+            ("gemma3_local", FLASH_GEMMA3_LOCAL, GEMMA3_WINDOW, True),
+            ("zamba2", FLASH_ZAMBA2, None, True),
+            ("whisper_encoder", FLASH_WHISPER_ENC, None, False),
+            ("whisper_cross", FLASH_WHISPER_CROSS, None, False),
+            ("vlm_cross", FLASH_VLM_CROSS, None, False)):
         b, s, h, kv, d = (shape[key] for key in "b s h kv d".split())
+        t = shape.get("t", s)
         # three input sets, together past L2
         sets = [flash_inputs(torch, gen, **shape) for _ in range(3)]
         kernel_ms = time_ms(lambda q, k, v: ops._kernel_forward(
-            q, k, v, True, window), sets)
+            q, k, v, causal, window), sets)
         plain_ms = time_ms(lambda q, k, v: ref.flash_attention_plain(
-            q, k, v, window=window), sets, reps=5, per_rep=3, warmup=1)
-        heads_first = [tuple(t.transpose(1, 2).contiguous() for t in qkv)
+            q, k, v, causal=causal, window=window), sets, reps=5,
+            per_rep=3, warmup=1)
+        heads_first = [tuple(x.transpose(1, 2).contiguous() for x in qkv)
                        for qkv in sets]
         if window is None:
-            library = functools.partial(sdpa, is_causal=True,
+            library = functools.partial(sdpa, is_causal=causal,
                                         enable_gqa=True)
         else:    # SDPA takes a window as an explicit boolean mask
             pos = torch.arange(s, device="cuda")
@@ -888,12 +1004,14 @@ def check_flash(torch, ops, ref):
         # the library call computes the same function
         torch.testing.assert_close(
             library(*heads_first[0]).transpose(1, 2),
-            ref.flash_attention_plain(*sets[0], window=window)[0],
+            ref.flash_attention_plain(*sets[0], causal=causal,
+                                      window=window)[0],
             rtol=0, atol=1e-4)
         library_ms = time_ms(library, heads_first)
-        n_bytes, flops = flash_cost(b, s, h, kv, d, window)
+        n_bytes, flops = flash_cost(b, s, h, kv, d, window, t, causal)
         simt_ms, tc_ms = flash_bounds(n_bytes, flops)
-        print(f"flash_attn {name} b={b} s={s} H={h} KV={kv} D={d} causal"
+        print(f"flash_attn {name} b={b} s={s} t={t} H={h} KV={kv} D={d} "
+              f"{'causal' if causal else 'bidirectional'}"
               f"{'' if window is None else f' window {window}'} "
               f"f32: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"SDPA {library_ms:.4f} ms; {flops} flop, {n_bytes} B: "
@@ -929,7 +1047,12 @@ def check_flash(torch, ops, ref):
                               "max_abs_err": zoo_err["mixtral"]},
             "mixtral_check_shape": {**FLASH_MIXTRAL_CHECK,
                                     "window": MIXTRAL_WINDOW,
-                                    "max_abs_err": zoo_err["mixtral_check"]}}
+                                    "max_abs_err": zoo_err["mixtral_check"]},
+            "key_length_of_its_own_max_abs_err": cross_err,
+            **{f"{name}_shape": {**shape, "causal": causal,
+                                 **timed.get(name, {}),
+                                 "max_abs_err": cond_err[name]}
+               for name, shape, causal in cond}}
 
 
 @contextlib.contextmanager
@@ -962,6 +1085,19 @@ def compare_with_parent(torch, parent, flash_ops, robust_ops):
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     flash_parent = entry(flash_ops, "flash_attn", "flash_attn")
+    import re
+    with open(os.path.join(csrc, "flash_attn.cu")) as f:
+        parent_takes_t = re.search(r"int s,\s*int t,", f.read()) is not None
+    if not parent_takes_t:
+        # a parent from before the key length of its own: its entry point
+        # has no `t` (argument 8), and takes t = s
+        own = flash_ops._kernel()
+        flash_parent.argtypes = own.argtypes[:8] + own.argtypes[9:]
+
+        def flash_parent(*args, _fn=flash_parent):
+            if args[7] != args[8]:
+                raise ValueError("the parent's flash_attn takes t = s")
+            return _fn(*args[:8], *args[9:])
     trimmed_parent = entry(robust_ops, "trimmed_wavg", "trimmed_wavg_f32")
     runs = []
     for name, shape in (("main", FLASH_MAIN), ("qwen3", FLASH_QWEN3)):
@@ -1466,7 +1602,8 @@ def check_gemma3(torch, flash_ops):
     objective into D and G. Each backbone pass launches flash_attn 6
     times, 5 with the window of 1,024 keys and 1 without; the gradients
     are finite; D's logits on the real tokens equal the port's on the
-    CPU from the same parameters (rtol 1e-4). Returns the path's
+    CPU from the same parameters (rtol 1e-4; the first sequence's: the
+    CPU forward of both took 35 s). Returns the path's
     flash_attn launches."""
     import numpy as np
     from repro_torch.core import protocol
@@ -1542,15 +1679,17 @@ def check_gemma3(torch, flash_ops):
           f"{len(grads)} gradients, every one finite (none into G's "
           f"embedding and lm_head); peak device memory {peak:.2f} GiB")
 
+    # the first sequence's logit (2,048 tokens, the window binding) on
+    # the CPU: D pools each sequence apart
     disc_cpu = tree_map(lambda x: x.detach().cpu(), params["disc"])
     t0 = time.perf_counter()
     with torch.no_grad():
-        real_cpu = spec.disc_real(disc_cpu, tokens.cpu())
+        real_cpu = spec.disc_real(disc_cpu, tokens[:1].cpu())
     cpu_s = time.perf_counter() - t0
-    torch.testing.assert_close(real.detach().cpu(), real_cpu, rtol=1e-4,
+    torch.testing.assert_close(real.detach()[:1].cpu(), real_cpu, rtol=1e-4,
                                atol=0)
-    print(f"{cfg.name} D logits on the real tokens, card "
-          f"{real.detach().cpu().tolist()} against the CPU "
+    print(f"{cfg.name} D logit on the first sequence of real tokens, card "
+          f"{real.detach()[:1].cpu().tolist()} against the CPU "
           f"{real_cpu.tolist()} (rtol 1e-4; the CPU forward {cpu_s:.2f} s "
           f"on {torch.get_num_threads()} threads). Its GAN round waits for "
           f"tensor parallelism across cards or bf16 (ROADMAP A items 8 and "
@@ -2496,12 +2635,16 @@ def train_fused(torch, shards, card, tokens):
                       f"nondeterministic algorithms allowed: parameters "
                       f"{floor:.3e} apart after {n_rounds} rounds")
         results["MLP-GAN rounds/s"] = mlp_rounds_per_s(torch)
-        for name, bb, kernels in (("mamba2", MAMBA, SSD_KERNELS),
-                                  ("granite", GRANITE, ("flash_attn",)),
-                                  ("minitron", MINITRON, ("flash_attn",))):
+        # mamba2-130m's host rounds are host-bound (~10 s each): 2 rounds,
+        # enough for 8d's comparison and a replay
+        for name, bb, kernels, n_rounds in (
+                ("mamba2", MAMBA, SSD_KERNELS, 2),
+                ("granite", GRANITE, ("flash_attn",), 3),
+                ("minitron", MINITRON, ("flash_attn",), 3)):
             bb = dict(bb, name=name)
             results[bb["arch"]] = compare_drivers(
-                torch, bb["arch"], functools.partial(backbone_run, bb), 3,
+                torch, bb["arch"], functools.partial(backbone_run, bb),
+                n_rounds,
                 peak=True, keep=host_records, keep_gen=name == "mamba2",
                 want={"wavg": 1, **{kernel: bb["per_round"]
                                     for kernel in kernels}})
@@ -3320,17 +3463,17 @@ def train_experiments(torch, shards, card, wavg_ops, robust_ops,
 # Phase 9: serving
 # ---------------------------------------------------------------------------
 
-# The serving paths: granite-3-2b at full width, 8 of its 40 layers (cut
-# from full depth to make room for phase 11; vocabulary 49,155, the
+# The serving paths: granite-3-2b at full width, 4 of its 40 layers (cut
+# from full depth to make room for phases 11 and 12; vocabulary 49,155, the
 # generator alone) behind the engine at batch 8,
 # max_len 1,024, 16-token blocks, 32-token prefill chunks, on 16 seeded
 # requests (prompts of 16-512 tokens, 32-64 new, every other one at
 # temperature 0.8); gemma3-12b at full width, one 5:1 group and the
 # vocabulary cut to 32,768 (as phase 5g), on prompts of 1,100-1,500
 # tokens, so that chunked prefill wraps the 1,024-key rings.
-SERVE_GRANITE = dict(arch="granite-3-2b", layers=8, batch=8, max_len=1024,
+SERVE_GRANITE = dict(arch="granite-3-2b", layers=4, batch=8, max_len=1024,
                      block=16, chunk=32, requests=16, prompt=(16, 512),
-                     new=(32, 64), prefill=600, gen_size=692_369_408)
+                     new=(32, 64), prefill=600, gen_size=449_083_392)
 SERVE_GEMMA3 = dict(arch="gemma3-12b", layers=6, vocab=32_768, batch=2,
                     max_len=1600, block=16, chunk=32, requests=3,
                     prompt=(1100, 1500), new=(8, 16), gen_size=1_611_747_072)
@@ -3423,17 +3566,19 @@ def close_logits(torch, got, want, label):
     return err, scale
 
 
-def teacher_forced(torch, gan, params, cfg, prompt, tokens, mode="train"):
+def teacher_forced(torch, gan, params, cfg, prompt, tokens, mode="train",
+                   enc_feats=None):
     """The full forward's logits before each of `tokens`, fed the prompt
     and `tokens`: (len(tokens), vocab) float32. mode="prefill" routes
     every MoE token (serving's dropless forward; "train" drops at
-    capacity)."""
+    capacity); enc_feats: a conditioned family's (1, t, d) features."""
     import numpy as np
     seq = torch.from_numpy(np.concatenate(
         [np.asarray(prompt), np.asarray(tokens[:-1])]).astype(np.int64)).to(
         params["embed"]["table"].device)[None]
     with torch.no_grad():
         logits = gan.generator_lm_apply(params, cfg, seq, mode=mode,
+                                        enc_feats=enc_feats,
                                         remat=False)["logits"][0]
     return logits[len(prompt) - 1:].float()
 
@@ -3454,17 +3599,22 @@ def held_until_tie(tokens, ref_tokens, ref_logits, label):
     return None
 
 
-def chunked_prefill(torch, gan, cfg, params, prompt, chunk, cache_len):
+def chunked_prefill(torch, gan, cfg, params, prompt, chunk, cache_len,
+                    enc_feats=None):
     """The engine's chunked prefill of one prompt, as its step runs it:
     `generator_lm_apply` in decode mode over chunks of `chunk` tokens
     (the last padded to a power-of-two bucket, its tail masked) at their
-    positions, against dense float32 caches of `cache_len`. Returns the
-    prompt's logits and the caches."""
-    from repro_torch.models.backbone import init_decode_caches
+    positions, against dense float32 caches of `cache_len` (a conditioned
+    family's cross caches filled first from `enc_feats`, as the engine
+    fills them). Returns the prompt's logits and the caches."""
+    from repro_torch.models.backbone import (fill_cross_caches,
+                                             init_decode_caches)
     from repro_torch.serving.engine import _pow2_bucket
     device = params["embed"]["table"].device
     caches = init_decode_caches(cfg, 1, cache_len, dtype=torch.float32,
                                 device=device)
+    if enc_feats is not None:
+        fill_cross_caches(caches, params, cfg, enc_feats)
     logits = []
     with torch.no_grad():
         for p0 in range(0, len(prompt), chunk):
@@ -3483,12 +3633,15 @@ def chunked_prefill(torch, gan, cfg, params, prompt, chunk, cache_len):
 
 
 def prefill_against_chunked(torch, gan, cfg, params, prompt, names,
-                            kernel_mods, n_decode=4, chunk=32):
+                            kernel_mods, n_decode=4, chunk=32,
+                            enc_feats=None):
     """One `mode="prefill"` call on `prompt` (it launches the kernels
     `names`: the flash attention, the SSD scan with its final state, or
     both for a hybrid), then `n_decode` greedy decode steps from its
     caches (scalar cache_index); the same prompt through the engine's
     chunked prefill and the same tokens decoded at their positions.
+    enc_feats: a conditioned family's (1, t, d) features (the prefill
+    call's encoder or image states; the chunked prefill's cross caches).
     Logits held at SERVE_RTOL. Returns {name: launches} of the prefill
     call and the errors."""
     device = params["embed"]["table"].device
@@ -3498,13 +3651,13 @@ def prefill_against_chunked(torch, gan, cfg, params, prompt, names,
     with torch.no_grad():
         pre = gan.generator_lm_apply(params, cfg, toks, mode="prefill",
                                      prefill_cache_len=n + n_decode,
-                                     remat=False)
+                                     enc_feats=enc_feats, remat=False)
     torch.cuda.synchronize()
     launches = kernel_counts(kernel_mods)
     if any(v for k, v in launches.items() if k not in names):
         raise AssertionError(f"prefill launched {launches}")
     ref, caches = chunked_prefill(torch, gan, cfg, params, prompt, chunk,
-                                  n + n_decode)
+                                  n + n_decode, enc_feats)
     errs = {"prefill": close_logits(torch, pre["logits"][0], ref,
                                     f"{cfg.name} prefill")}
     cur = pre["logits"][0, -1].argmax()
@@ -3528,14 +3681,15 @@ def prefill_against_chunked(torch, gan, cfg, params, prompt, names,
     return {name: launches[name] for name in names}, errs
 
 
-def serving_engine(torch, cfg, params, setting, *, paged, capture=True):
+def serving_engine(torch, cfg, params, setting, *, paged, capture=True,
+                   enc_feats_fn=None):
     from repro_torch.serving import ServingEngine
     torch.cuda.empty_cache()
     eng = ServingEngine(cfg, params, batch_size=setting["batch"],
                         max_len=setting["max_len"],
                         block_size=setting["block"] if paged else None,
-                        prefill_chunk=setting["chunk"], seed=0,
-                        device="cuda")
+                        prefill_chunk=setting["chunk"],
+                        enc_feats_fn=enc_feats_fn, seed=0, device="cuda")
     eng._capture = capture
     return eng
 
@@ -4574,8 +4728,10 @@ ZOO_HYBRID = dict(arch="zamba2-2.7b", k=2, n_d=1, n_g=1, m=4, seq=1024,
 ZOO_MIXTRAL = dict(arch="mixtral-8x22b", layers=1, disc_layers=1, b=1,
                    seq=8192, check_seq=520,
                    sizes=(2_945_255_424, 2_743_148_544))
-# 11d the generators of granite-moe-3b-a800m and zamba2-2.7b at full width
-# and depth (32 and 54 layers) behind the engine at batch 4, max_len 64,
+# 11d the generators of granite-moe-3b-a800m (at full width, 8 of its 32
+# layers, to make room for phase 12) and zamba2-2.7b (at full
+# width and depth, 54 layers, which the serve CLI builds) behind the
+# engine at batch 4, max_len 64,
 # 16-token blocks, 32-token prefill chunks: the serve CLI's 4 demo
 # prompts (4-16 tokens, seed 0), 20 greedy tokens each, so that every
 # request crosses a block boundary; one mode="prefill" call against the
@@ -4586,7 +4742,8 @@ ZOO_MIXTRAL = dict(arch="mixtral-8x22b", layers=1, disc_layers=1, b=1,
 # 32-token chunks never do).
 SERVE_ZOO = dict(batch=4, max_len=64, block=16, chunk=32, demo=4, new=20,
                  prefill={"granite-moe-3b-a800m": 512, "zamba2-2.7b": 520},
-                 sizes={"granite-moe-3b-a800m": 3_376_851_456,
+                 layers={"granite-moe-3b-a800m": 8, "zamba2-2.7b": 54},
+                 sizes={"granite-moe-3b-a800m": 959_384_064,
                         "zamba2-2.7b": 2_429_551_520})
 ZOO_RANGES = ("moe.dispatch", "moe.experts", "moe.combine",
               "moe.gather.backward", "FlashAttention.backward",
@@ -4594,34 +4751,38 @@ ZOO_RANGES = ("moe.dispatch", "moe.experts", "moe.combine",
 
 
 def zoo_trainer(bb, cfg, shards, driver):
-    """A Trainer of a phase 11 backbone-GAN: Adam at 1e-3, 16-bit uplink,
-    every device scheduled, fading off (the drivers then draw the same
-    masks), each pass whole (remat off)."""
+    """A Trainer of a phase 11 or 12 backbone-GAN: Adam at 1e-3, 16-bit
+    uplink, every device scheduled, fading off (the drivers then draw the
+    same masks), each pass whole (remat off); a conditioned family takes
+    the stub frontend's features (`make_stub_enc_feats`, on the card)."""
     from repro_torch.configs import ProtocolConfig
     from repro_torch.core import Trainer
     from repro_torch.core.channel import ChannelConfig
     from repro_torch.models import gan
-    from repro_torch.models.specs import make_backbone_spec
+    from repro_torch.models.specs import (make_backbone_spec,
+                                          make_stub_enc_feats)
     pcfg = ProtocolConfig(n_devices=bb["k"], n_d=bb["n_d"], n_g=bb["n_g"],
                           sample_size=bb["m"], server_sample_size=bb["m"],
                           lr_d=1e-3, lr_g=1e-3, optimizer="adam",
                           schedule="serial", scheduler="all")
-    return Trainer(make_backbone_spec(cfg, bb["seq"], remat=False,
-                                      gen_loss_variant="nonsaturating"),
+    return Trainer(make_backbone_spec(
+        cfg, bb["seq"], remat=False, gen_loss_variant="nonsaturating",
+        enc_feats_fn=make_stub_enc_feats(cfg, device="cuda")),
                    pcfg, lambda g: gan.gan_init(g, cfg), shards, seed=0,
                    driver=driver,
                    channel_cfg=ChannelConfig(n_devices=bb["k"],
                                              fading=False))
 
 
-def zoo_train(torch, bb, shards, kernel_mods, want):
-    """11a / 11b: 2 rounds of the host driver (the path: every launch
-    count at 0 just before, read just after), one more host round
-    profiled (ZOO_RANGES), then 2 rounds of the fused driver (the second
-    a replay) bitwise equal to the host's (`compare_drivers`, under
-    cuDNN's deterministic algorithms), and one replay profiled: `want`
-    launches by kernel a round. Returns the path's launches and the
-    summary."""
+def zoo_train(torch, bb, shards, kernel_mods, want, n_rounds=2, phase="11",
+              ranges=ZOO_RANGES):
+    """11a / 11b / 12a: `n_rounds` rounds of the host driver (the path:
+    every launch count at 0 just before, read just after), one more host
+    round profiled (`ranges`), then `n_rounds` rounds of the fused driver
+    (all but the first replays) bitwise equal to the host's
+    (`compare_drivers`, under cuDNN's deterministic algorithms), and one
+    replay profiled: `want` launches by kernel a round. Returns the
+    path's launches and the summary."""
     from repro_torch.core.protocol import count_params
     cfg = backbone_config(bb)
 
@@ -4634,30 +4795,32 @@ def zoo_train(torch, bb, shards, kernel_mods, want):
 
     def profiled(trainer):
         return profile_round(torch, trainer, f"{cfg.name} host",
-                             ranges=ZOO_RANGES, kernels=(
+                             ranges=ranges, kernels=(
                                  r"flash_attn_kernel", r"ssd_\w+_kernel",
                                  r"gemm|Gemm|sm90_xmma|cutlass"))
 
     torch.backends.cudnn.deterministic = True
     try:
-        out = compare_drivers(torch, cfg.name, make, 2, want=want,
+        out = compare_drivers(torch, cfg.name, make, n_rounds, want=want,
                               peak=True, kernel_mods=kernel_mods,
                               after_host=profiled)
     finally:
         torch.backends.cudnn.deterministic = False
     launches = {k: v for k, v in out["host_launches"].items() if v}
-    expect = {"wavg": 2, **{("ssd_scan" if k.startswith("ssd_") else k): 2 * n
-                           for k, n in want.items() if k != "wavg"}}
+    expect = {"wavg": n_rounds,
+              **{("ssd_scan" if k.startswith("ssd_") else k): n_rounds * n
+                 for k, n in want.items() if k != "wavg"}}
     if launches != expect:
         raise AssertionError(f"{cfg.name}: host rounds launched {launches}, "
                              f"expected {expect}")
     prof = out["after_host"]
     if prof is not None:
         split = {**prof["ranges_s"], **prof["kernels_s"]}
-        print(f"11 {cfg.name}: one profiled host round {prof['wall_s']:.3f} "
-              f"s wall, {prof['busy_s']:.3f} s device busy; device s by "
-              f"part: " + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
-    print(f"11 {cfg.name} ({cfg.n_layers} layers, K={bb['k']}, seq_len "
+        print(f"{phase} {cfg.name}: one profiled host round "
+              f"{prof['wall_s']:.3f} s wall, {prof['busy_s']:.3f} s device "
+              f"busy; device s by part: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
+    print(f"{phase} {cfg.name} ({cfg.n_layers} layers, K={bb['k']}, seq_len "
           f"{bb['seq']}): host {[round(x, 4) for x in out['host_s']]} s a "
           f"round, fused {[round(x, 4) for x in out['fused_s']]}; peak host "
           f"{out['host_peak_gib']:.2f} GiB, fused {out['fused_peak_gib']:.2f} "
@@ -4786,12 +4949,11 @@ def serve_zoo_model(torch, name, kernels, kernel_mods, out):
     (`kernels` launched, one a layer of each kind, flash_attn past its
     threshold). Returns its launches."""
     import numpy as np
-    from repro_torch.configs import get_arch_config
     from repro_torch.core.protocol import count_params
     from repro_torch.models import gan
     from repro_torch.tree import tree_leaves
     setting = SERVE_ZOO
-    cfg = get_arch_config(name)
+    cfg = backbone_config(dict(arch=name, layers=setting["layers"][name]))
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -4950,6 +5112,393 @@ def zoo_phase(torch, card, kernel_mods, moe_shards):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the conditioned families
+# ---------------------------------------------------------------------------
+
+# 12a whisper-base (arXiv:2212.04356) at full width and depth (6 decoder
+# and 6 encoder layers, d_model 512, 8 heads of 64, vocabulary 51,865;
+# the conv/mel frontend a stub of 1,500 frames): K = 4, m = 4 sequences
+# of 448 tokens (Whisper's text context), n_d = n_g = 2, Adam, on
+# granite-3-2b's token data cut to 448 tokens (its ids, < 49,155, are
+# whisper tokens; whisper's own table would take 10.8 GB of host
+# memory). A net's call launches 12 flash_attn: 6 encoder layers over
+# 1,500 frames and 6 cross-attentions from 448 tokens to them (the
+# decoder's 448 x 448 self-attention stays below the flash threshold).
+COND_WHISPER = dict(arch="whisper-base", k=4, n_d=2, n_g=2, m=4, seq=448,
+                    layers=6, sizes=(97_577_984, 70_958_080),
+                    per_round=2 * (12 + 2 * 4 * 12) + 2 * 2 * 12)
+# 12b llama-3.2-vision-90b (hf:meta-llama/Llama-3.2-90B-Vision) at full
+# width (d_model 8,192, 64 heads of 128 over 8, d_ff 28,672), one group
+# (4 self-attention layers and one gated cross-attention layer) of its
+# 100 layers in G and in D, vocabulary 32,768: forward and backward of
+# one net at a time at 1 x 2,048 tokens over 1,600 image tokens (a GAN
+# round with float32 Adam needs (2 D + G) x 16 B = 226 GB); D's logits
+# at 520 tokens against the CPU.
+COND_VLM = dict(arch="llama-3.2-vision-90b", layers=5, disc_layers=None,
+                vocab=32_768, b=1, seq=2048, check_seq=520,
+                sizes=(4_883_308_546, 4_613_832_706))
+# 12c the generators behind the engine: whisper-base at full depth, batch
+# 8, max_len 448, 16-token blocks, 32-token prefill chunks, 16 seeded
+# requests (prompts of 16-384 tokens, 32-64 new, every other one at
+# temperature 0.8), a mode="prefill" call of 448 tokens; llama-3.2-
+# vision-90b's group at its full vocabulary of 128,256 (6.45 G
+# parameters, 25.8 GB), batch 4, the serve CLI's 4 demo prompts, 20
+# greedy tokens each, a mode="prefill" call of 600 tokens.
+SERVE_WHISPER = dict(arch="whisper-base", layers=6, batch=8, max_len=448,
+                     block=16, chunk=32, requests=16, prompt=(16, 384),
+                     new=(32, 64), prefill=448, gen_size=97_577_984,
+                     prefill_flash=12)
+SERVE_VLM = dict(arch="llama-3.2-vision-90b", layers=5, batch=4,
+                 max_len=64, block=16, chunk=32, demo=4, new=20,
+                 prefill=600, gen_size=6_447_783_938, prefill_flash=5)
+COND_RANGES = ("encoder", "cross_attention", "FlashAttention.backward")
+GATES = {"gate_attn": 0.5, "gate_ff": -0.4}   # tanh 0.46 and -0.38
+
+
+def open_gates(torch, params):
+    """The vision family's cross-layer gates (0 at init, which hides the
+    layer and the gradients of its weights) set to GATES, in place."""
+    with torch.no_grad():
+        for sub in params["backbone"]["groups"].values():
+            for name, value in GATES.items():
+                if name in sub:
+                    sub[name].fill_(value)
+    return params
+
+
+def check_vlm(torch, flash_ops):
+    """12b, llama-3.2-vision-90b at full width, one group in G and D,
+    the gates open: G's forward at COND_VLM's 2,048 tokens over 1,600
+    stub image tokens and its backward (of a fixed random cotangent of
+    its output), G freed; D on real tokens and on G's output and the
+    backward of D's objective into D (the path: 15 flash_attn launches,
+    each net's 4 causal self-attentions and one cross-attention, their
+    shapes checked); every gradient finite, the gates' and the cross
+    layer's k/v projections' non-zero; the peak device memory of each
+    net; then D's logits at 520 tokens on the card against the port on
+    the CPU from the same parameters (rtol 1e-4). Returns the path's
+    launches and the summary."""
+    import numpy as np
+    from repro_torch.core import protocol
+    from repro_torch.models import gan
+    from repro_torch.models.specs import (make_backbone_spec,
+                                          make_stub_enc_feats)
+    from repro_torch.tree import tree_leaves, tree_map
+    bb = COND_VLM
+    cfg = backbone_config(bb)
+    enc = make_stub_enc_feats(cfg, device="cuda")
+    spec = make_backbone_spec(cfg, bb["seq"], enc_feats_fn=enc, remat=False,
+                              gen_loss_variant="nonsaturating")
+    calls = []
+    wrapper = flash_ops.flash_attention
+
+    def recording(q, k, v, *, causal=True, window=None):
+        calls.append((tuple(q.shape), tuple(k.shape), causal, window))
+        return wrapper(q, k, v, causal=causal, window=window)
+
+    def grads_of(params, label, unused=()):
+        skip = {id(x) for x in tree_leaves(unused)}
+        grads = [x.grad for x in tree_leaves(params) if id(x) not in skip]
+        if any(g is None or not bool(torch.isfinite(g).all())
+               for g in grads):
+            raise AssertionError(f"{cfg.name} {label}: a missing or "
+                                 f"non-finite gradient")
+        cross = params["backbone"]["groups"]["sub4"]
+        moved = {name: float(t.grad.abs().max()) for name, t in (
+            ("gate_attn", cross["gate_attn"]), ("gate_ff", cross["gate_ff"]),
+            ("wk", cross["attn"]["wk"]), ("wv", cross["attn"]["wv"]))}
+        if not all(v > 0 for v in moved.values()):
+            raise AssertionError(f"{cfg.name} {label}: zero gradients "
+                                 f"{moved}")
+        return moved
+
+    def build(init, seed):
+        params = open_gates(torch, init(torch.Generator("cuda").manual_seed(
+            seed), cfg))
+        for x in tree_leaves(params):
+            x.requires_grad_(True)
+        return params
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    flash_ops.flash_attention = recording
+    try:
+        flash_ops.launches = 0                     # the path starts here
+        params = build(gan.generator_init, 0)
+        size_g = protocol.count_params(params)
+        z = spec.sample_z(torch.Generator("cuda").manual_seed(1), bb["b"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fake = spec.gen_apply(params, z)
+        torch.cuda.synchronize()
+        out["g_forward_s"] = time.perf_counter() - t0
+        cot = torch.randn(fake.shape, generator=torch.Generator(
+            "cuda").manual_seed(2), device="cuda")
+        t0 = time.perf_counter()
+        (fake * cot).sum().backward()
+        torch.cuda.synchronize()
+        out["g_backward_s"] = time.perf_counter() - t0
+        out["g_grad_max"] = grads_of(params, "G", unused={
+            k: params[k] for k in ("embed", "lm_head")})
+        out["g_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        fake = fake.detach()
+        del params, cot, z
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = build(gan.discriminator_init, 3)
+        size_d = protocol.count_params(params)
+        tokens = torch.as_tensor(np.random.default_rng(4).integers(
+            0, cfg.vocab, (bb["b"], bb["seq"])), device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real = spec.disc_real(params, tokens)
+        fake_logits = spec.disc_fake(params, fake)
+        objective = (torch.nn.functional.softplus(-real).mean()
+                     + torch.nn.functional.softplus(fake_logits).mean())
+        torch.cuda.synchronize()
+        out["d_forward_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        objective.backward()
+        torch.cuda.synchronize()
+        out["d_backward_s"] = time.perf_counter() - t0
+        launches = flash_ops.launches              # ... and ends here
+        out["d_grad_max"] = grads_of(params, "D")
+        out["d_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        flash_ops.flash_attention = wrapper
+    if (size_g, size_d) != bb["sizes"]:
+        raise AssertionError(f"{cfg.name} sizes {(size_g, size_d)}")
+    h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q, t = (bb["b"], bb["seq"], h, d), cfg.n_image_tokens
+    net = [(q, (bb["b"], bb["seq"], kv, d), True, None)] * 4 + [
+        (q, (bb["b"], t, kv, d), False, None)]
+    if launches != 15 or calls != net * 3:
+        raise AssertionError(f"{cfg.name}: {launches} flash_attn launches, "
+                             f"calls {calls}")
+    if not bool(torch.isfinite(objective)):
+        raise AssertionError(f"{cfg.name}: objective {objective}")
+    del real, fake_logits, objective, fake
+    for x in tree_leaves(params):
+        x.grad = None
+        x.requires_grad_(False)
+    print(f"12b {cfg.name} (one group, 4 self + 1 gated cross layer, "
+          f"d_model {cfg.d_model}, {bb['b']} x {bb['seq']} tokens over {t} "
+          f"image tokens, gates {GATES}): {size_g} G / {size_d} D "
+          f"parameters; G forward {out['g_forward_s']:.3f} s, backward "
+          f"{out['g_backward_s']:.3f} s, peak {out['g_peak_gib']:.2f} GiB; "
+          f"D forward (real, fake) {out['d_forward_s']:.3f} s, backward "
+          f"{out['d_backward_s']:.3f} s, peak {out['d_peak_gib']:.2f} GiB; "
+          f"{launches} flash_attn launches (a net: 4 causal {q} over "
+          f"{bb['seq']} keys, 1 bidirectional over {t}); every gradient "
+          f"finite; largest |grad| of the gates and cross wk/wv: G "
+          f"{out['g_grad_max']}, D {out['d_grad_max']}")
+
+    check = make_backbone_spec(cfg, bb["check_seq"], enc_feats_fn=enc,
+                               remat=False)
+    short = tokens[:, :bb["check_seq"]]
+    with torch.no_grad():
+        card = check.disc_real(params, short).cpu()
+    disc_cpu = tree_map(lambda x: x.detach().cpu(), params)
+    del params
+    torch.cuda.empty_cache()
+    base = enc(1).cpu()
+    check_cpu = make_backbone_spec(
+        cfg, bb["check_seq"], remat=False,
+        enc_feats_fn=lambda n: base.expand(n, -1, -1))
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        host = check_cpu.disc_real(disc_cpu, short.cpu())
+    cpu_s = time.perf_counter() - t0
+    torch.testing.assert_close(card, host, rtol=1e-4, atol=0)
+    print(f"12b {cfg.name} D logits on {bb['check_seq']} real tokens over "
+          f"{t} image tokens, card {card.tolist()} against the CPU "
+          f"{host.tolist()} (rtol 1e-4; the CPU forward {cpu_s:.2f} s on "
+          f"{torch.get_num_threads()} threads)")
+    del disc_cpu
+    out.update(launches=launches, cpu_s=cpu_s, logits_card=card.tolist(),
+               logits_cpu=host.tolist())
+    return {"flash_attn": launches}, out
+
+
+def serve_conditioned(torch, setting, kernel_mods, out):
+    """12c for one conditioned generator (`setting`): its requests
+    through the paged engine (captured), the dense one and the paged one
+    uncaptured, each filling its cross caches once from the stub
+    frontend's features: tokens, and the captured and uncaptured cache
+    leaves, bit for bit, no kernel launch in the engines; the greedy
+    tokens against the full forward up to the first near tie; one
+    mode="prefill" call against the chunked prefill (its flash_attn
+    launches `setting["prefill_flash"]`); the replayed decode-only step
+    beside its weight-read bound (the backbone, the lm_head and every
+    slot's cross caches, once each). Returns the prefill's launches."""
+    import numpy as np
+    from repro_torch.core.protocol import count_params
+    from repro_torch.models import gan
+    from repro_torch.models.specs import make_stub_enc_feats
+    from repro_torch.tree import tree_leaves
+    cfg = backbone_config(setting)
+    name = cfg.name
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = open_gates(torch, gan.generator_init(
+        torch.Generator("cuda").manual_seed(0), cfg))
+    size = count_params(params)
+    if size != setting["gen_size"]:
+        raise AssertionError(f"{name} generator {size}")
+    enc = make_stub_enc_feats(cfg, device="cuda")
+    work = (serving_traffic(cfg.vocab, setting) if "requests" in setting
+            else demo_work(cfg.vocab, setting))
+    runs = {}
+    for label, paged, capture in (("paged", True, True),
+                                  ("dense", False, True),
+                                  ("paged uncaptured", True, False)):
+        eng = serving_engine(torch, cfg, params, setting, paged=paged,
+                             capture=capture, enc_feats_fn=enc)
+        toks, wall, steps, _ = serve_traffic(torch, eng, work, kernel_mods)
+        runs[label] = dict(tokens=toks, wall=wall, steps=steps, engine=eng,
+                           steps_n=eng.dispatch_count,
+                           captures=eng.compile_count,
+                           bytes=eng.cache_bytes())
+        if label == "dense":
+            del eng, runs[label]["engine"]
+    paged, dense, eager = (runs[k] for k in ("paged", "dense",
+                                             "paged uncaptured"))
+    if not paged["tokens"] == dense["tokens"] == eager["tokens"]:
+        raise AssertionError(f"{name}: paged, dense and uncaptured tokens "
+                             f"differ")
+    for a, b in zip(tree_leaves(paged["engine"].caches),
+                    tree_leaves(eager["engine"].caches)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name}: captured and uncaptured cache "
+                                 f"leaves differ")
+    cross_bytes = sum(t.numel() * t.element_size()
+                      for i, kind in enumerate(cfg.group_pattern)
+                      if kind == "cross"
+                      for t in paged["engine"].caches[f"sub{i}"].values())
+    del paged["engine"], eager["engine"]
+    torch.cuda.empty_cache()
+    greedy = [rid for rid, (_, _, t) in enumerate(work) if t == 0.0][:4]
+    ties = {}
+    for rid in greedy:
+        prompt, _, _ = work[rid]
+        toks = paged["tokens"][rid]
+        ref = teacher_forced(torch, gan, params, cfg, prompt, toks,
+                             enc_feats=enc(1))
+        ties[rid] = held_until_tie(toks, ref.argmax(-1).tolist(), ref,
+                                   f"{name} rid {rid}")
+    prompt = np.random.default_rng(8).integers(0, cfg.vocab,
+                                               setting["prefill"])
+    launched, errs = prefill_against_chunked(
+        torch, gan, cfg, params, prompt, ("flash_attn",), kernel_mods,
+        enc_feats=enc(1))
+    if launched["flash_attn"] != setting["prefill_flash"]:
+        raise AssertionError(f"{name} prefill: {launched}, expected "
+                             f"{setting['prefill_flash']} flash_attn")
+    lm_bytes = 4 * (count_params(params["backbone"])
+                    + params["lm_head"].numel()) + cross_bytes
+    dec_ms, n_dec = decode_only_ms(paged["steps"])
+    eager_ms, _ = decode_only_ms(eager["steps"])
+    n_tok = sum(len(t) for t in paged["tokens"].values())
+    bound_ms = lm_bytes / HBM_BYTES_PER_S * 1e3
+    out[name] = dict(
+        layers=cfg.n_layers, generator_params=size, tokens=n_tok,
+        tokens_per_s=n_tok / paged["wall"], paged_wall_s=paged["wall"],
+        dense_wall_s=dense["wall"], uncaptured_wall_s=eager["wall"],
+        steps=paged["steps_n"], captures=paged["captures"],
+        first_step_per_program_s={str(c): x for c, x in
+                                  _first_steps(paged["steps"]).items()},
+        decode_step_ms=dec_ms, decode_steps=n_dec,
+        uncaptured_decode_step_ms=eager_ms, weight_read_bound_ms=bound_ms,
+        weight_and_cross_bytes=lm_bytes, cross_cache_bytes=cross_bytes,
+        cache_bytes_paged=paged["bytes"], cache_bytes_dense=dense["bytes"],
+        first_near_tie=ties, prefill_launches=launched,
+        prefill_max_abs_err=errs,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    print(f"12c {name} ({cfg.n_layers} layers, {size:,} generator "
+          f"parameters): {len(work)} requests, {n_tok} tokens, paged = dense "
+          f"= uncaptured tokens and captured = uncaptured cache leaves bit "
+          f"for bit; paged {paged['wall']:.3f} s "
+          f"({out[name]['tokens_per_s']:.1f} tokens/s), dense "
+          f"{dense['wall']:.3f} s, uncaptured {eager['wall']:.3f} s; "
+          f"{paged['steps_n']} steps, {paged['captures']} captures; "
+          f"decode-only step replayed {dec_ms:.3f} ms (mean of {n_dec}), "
+          f"uncaptured {eager_ms:.3f} ms, weight-read bound {bound_ms:.3f} "
+          f"ms ({lm_bytes / 1e9:.3f} GB at 3.35 TB/s, {cross_bytes:,} B of "
+          f"cross caches); cache bytes dense {dense['bytes']:,}, paged "
+          f"{paged['bytes']:,}; greedy against the full forward, first near "
+          f"tie by rid: {ties}; prefill of {len(prompt)} tokens: "
+          f"{launched}, logits max abs err {errs}; peak "
+          f"{out[name]['peak_gib']:.2f} GiB")
+    del params
+    torch.cuda.empty_cache()
+    return launched
+
+
+def run_train_distgan_twin(torch, out):
+    """12d: `python -m repro_torch.examples.train_distgan` on the card,
+    2 rounds of each conditioned architecture, reduced, on its default
+    (fused) driver: finite metrics and FIDs, and the seconds it took."""
+    import io
+    import numpy as np
+    from repro_torch.examples import train_distgan
+    for name in ("whisper-base", "llama-3.2-vision-90b"):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            hist = train_distgan.main(["--arch", name, "--rounds", "2",
+                                       "--devices", "2", "--seq-len", "16"])
+        secs = time.perf_counter() - t0
+        values = [v for r in hist for v in r.metrics.values()] + [
+            r.fid for r in hist if r.fid is not None]
+        if len(hist) != 2 or not all(np.isfinite(v) for v in values):
+            raise AssertionError(f"train_distgan --arch {name}: {hist}")
+        out[f"train_distgan {name}"] = dict(
+            seconds=secs, fid=[r.fid for r in hist])
+        print(f"12d train_distgan --arch {name} (reduced, 2 rounds, fused) "
+              f"on the card: {secs:.2f} s; its last line: "
+              f"{buf.getvalue().strip().splitlines()[-1]}")
+
+
+def conditioned_phase(torch, card, kernel_mods, whisper_shards):
+    """Phase 12 on `card`: 12a whisper-base on `whisper_shards` (K=4
+    shards of 448-token sequences), 12b llama-3.2-vision-90b's group,
+    12c both generators served, 12d the train_distgan twin. Returns the
+    launches of each path by kernel: "encdec" (12a's host rounds), "vlm"
+    (12b), and "serving" (12c's mode="prefill" calls)."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out, launches = {}, {}
+    launches["encdec"], out["whisper-base"] = zoo_train(
+        torch, COND_WHISPER, whisper_shards, kernel_mods,
+        want={"wavg": 1, "flash_attn": COND_WHISPER["per_round"]},
+        n_rounds=3, phase="12a", ranges=COND_RANGES)
+    stamp("conditioned: whisper-base")
+    launches["vlm"], out["llama-3.2-vision-90b"] = check_vlm(
+        torch, kernel_mods["flash_attn"])
+    stamp("conditioned: llama-3.2-vision-90b")
+    serving = {}
+    for setting in (SERVE_WHISPER, SERVE_VLM):
+        for k, n in serve_conditioned(torch, setting, kernel_mods,
+                                      out).items():
+            serving[k] = serving.get(k, 0) + n
+    launches["serving"] = serving
+    stamp("conditioned: serving")
+    zero_counts(kernel_mods)
+    run_train_distgan_twin(torch, out)
+    zero_counts(kernel_mods)
+    stamp("conditioned: train_distgan")
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"conditioned phase on {card}: {out['phase_s']:.1f} s")
+    print(json.dumps({"conditioned": out}, default=float))
+    return launches
+
+
 def host_rounds(torch):
     """`--host-rounds`: seconds a host-driver round in this process, under
     the PYTORCH_CUDA_ALLOC_CONF it was started with: the full DCGAN
@@ -5039,6 +5588,11 @@ def main() -> int:
         "--zoo-only", action="store_true",
         help="after phase 2, run phase 11 alone (with granite-3-2b's "
              "token data made for it), and stop")
+    parser.add_argument(
+        "--conditioned-only", action="store_true",
+        help="after phase 2, check the flash_attn kernel (phase 3's part), "
+             "run phase 12 alone (with 448-token sequences of granite-3-2b's "
+             "vocabulary made for it), and stop")
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -5102,6 +5656,20 @@ def main() -> int:
         print(json.dumps({"zoo_launches": zoo_phase(torch, card, kernel_mods,
                                                      shards)}))
         stamp("zoo")
+        return 0
+    if args.conditioned_only:
+        kernel_mods = {"wavg": ops, "trimmed_wavg": robust_ops,
+                       "ssd_scan": ssd_ops, "flash_attn": flash_ops,
+                       "ring_accum": ring_ops}
+        flash = check_flash(torch, flash_ops, flash_ref)
+        stamp("kernels: flash_attn")
+        shards = token_shards(COND_WHISPER, backbone_config(GRANITE))[1]
+        launches = conditioned_phase(torch, card, kernel_mods, shards)
+        flash["launches_by_path"] = {path: counts.get("flash_attn", 0)
+                                     for path, counts in launches.items()}
+        print(json.dumps({"conditioned_launches": launches,
+                          "flash_attn": flash}, default=float))
+        stamp("conditioned")
         return 0
 
     # 3. kernels
@@ -5258,6 +5826,24 @@ def main() -> int:
         entry["launches_by_path"]["serving"] += n
         entry["launches"] += n
     stamp("zoo")
+
+    # 12. the conditioned families: whisper-base through both drivers at
+    # full depth, llama-3.2-vision-90b's group forward and backward, both
+    # generators served with their cross caches (12c's mode="prefill"
+    # calls join the "serving" path), the train_distgan twin
+    import numpy as np
+    whisper_shards = np.ascontiguousarray(
+        tokens["granite"][:COND_WHISPER["k"], :, :COND_WHISPER["seq"]])
+    cond = conditioned_phase(torch, card, kernel_mods, whisper_shards)
+    for entry in (wavg, trimmed, ssd, flash, ring):
+        for path in ("encdec", "vlm"):
+            n = cond[path].get(entry["name"], 0)
+            entry["launches_by_path"][path] = n
+            entry["launches"] += n
+        n = cond["serving"].get(entry["name"], 0)
+        entry["launches_by_path"]["serving"] += n
+        entry["launches"] += n
+    stamp("conditioned")
 
     print(json.dumps({"kernels": [wavg, trimmed, ssd, flash, ring]}))
     print(json.dumps({"ok": True, "device": {

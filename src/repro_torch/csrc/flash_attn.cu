@@ -1,10 +1,12 @@
-// Causal grouped-query flash attention forward, hand-written for Hopper
-// (sm_90a).
+// Grouped-query flash attention forward (causal, sliding-window or
+// bidirectional), hand-written for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `flash_attention_pallas` (src/repro/kernels/
-// flash_attn/kernel.py, body `_flash_kernel`). Per (batch, head) and
-// query row i, over the keys j it may see (j <= i when causal, j > i -
-// window when windowed, j < s):
+// flash_attn/kernel.py, body `_flash_kernel`), which takes s queries
+// against t keys of their own length. Per (batch, head) and query row i
+// (i < s), over the keys j it may see (j < t; j <= i when causal, j > i -
+// window when windowed: query i and key j sit at positions i and j, as
+// in the Pallas kernel, so the masks keep their meaning when t != s):
 //
 //   out_i = sum_j exp(s_ij - m_i) v_j / l_i,   s_ij = (scale q_i) . k_j
 //   lse_i = m_i + log(max(l_i, 1e-30))
@@ -42,7 +44,7 @@
 //     tile as it lands in shared memory (big and small arrays, in the
 //     K-major layout wgmma reads), P by the thread that holds it;
 //   - K and V are read through the caller's strides by 16-byte cp.async
-//     (zero-filled past s) into a double-buffered stage: K lands where
+//     (zero-filled past t) into a double-buffered stage: K lands where
 //     its big values go and is split in place, V lands in a raw tile
 //     and is split into V^T, each chunk by the thread that copied it
 //     once its own copy is complete, so the only barrier of a key tile
@@ -61,7 +63,11 @@
 //   D 128: 2 warpgroups, 16-key tiles, 205,824 B, 201 / 211: 1 block an SM
 //   D 256: 1 warpgroup,   8-key tiles, 206,848 B, 208 / 208: 1 block an SM
 //
-// Layouts: q (b, s, H, D); k, v (b, s, KV, D); float32 or bfloat16, unit
+// A query that sees no key at all (possible only with a window and t <
+// s - window + 1) gets out 0 and lse -inf; the model's calls never ask
+// for one (self-attention sees its own key, cross-attention every key).
+//
+// Layouts: q (b, s, H, D); k, v (b, t, KV, D); float32 or bfloat16, unit
 // stride in D, 16-byte aligned with strides of whole 16 bytes (the
 // wrapper copies what is not). out (b, s, H, D) float32, contiguous; lse
 // (b, H, s) float32, contiguous. D is 32, 64, 80, 128 or 256.
@@ -99,7 +105,7 @@ struct Args {
   const void* v;
   float* out;
   float* lse;
-  int b, s, h, kv, causal, window;
+  int b, s, t, h, kv, causal, window;   // s queries, t keys
   float scale;   // log2(e) / sqrt(D): scores in base 2
   long long sqb, sqs, sqh, skb, sks, skh, svb, svs, svh;
 };
@@ -217,13 +223,13 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS, Cfg<D>::BLOCKS)
   auto load = [&](int buf, int k0) {
     for (int e = tid; e < BK * CPR; e += THREADS) {
       const int r = e % BK, c = e / BK, tk = k0 + r;
-      const bool ok = tk < a.s;
+      const bool ok = tk < a.t;
       cp16(Kb(buf) + kmajor(r, c * E, C::QK_SBO),
            ok ? kb + (long long)tk * a.sks + c * E : kb, ok);
     }
     for (int e = tid; e < BK * CPR; e += THREADS) {
       const int r = e / CPR, c = e % CPR, tk = k0 + r;
-      const bool ok = tk < a.s;
+      const bool ok = tk < a.t;
       cp16(raw + 16 * e, ok ? vb + (long long)tk * a.svs + c * E : vb, ok);
     }
     cp_commit();
@@ -259,7 +265,7 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS, Cfg<D>::BLOCKS)
 
   // the key tiles some query of the block can see
   const int q_last = min(q0 + BQ - 1, a.s - 1);
-  const int kt_end = (a.causal ? q_last : a.s - 1) / BK;
+  const int kt_end = (a.causal ? min(q_last, a.t - 1) : a.t - 1) / BK;
   int kt_begin = 0;
   if (a.window > 0 && q0 - a.window + 1 > 0) kt_begin = (q0 - a.window + 1) / BK;
 
@@ -306,7 +312,7 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS, Cfg<D>::BLOCKS)
     // the warpgroup's rows see some key of the tile / every key of it
     const bool seen = r0 < a.s && (!a.causal || k0 <= r0 + 63) &&
                       (a.window == 0 || k0 + BK - 1 > r0 - a.window);
-    const bool whole = k0 + BK <= a.s && (!a.causal || k0 + BK - 1 <= r0) &&
+    const bool whole = k0 + BK <= a.t && (!a.causal || k0 + BK - 1 <= r0) &&
                        (a.window == 0 || k0 > r0 + 63 - a.window);
     if (seen) {
       // S = (scale Q) K^T in three TF32 passes; sc[4 j + 2 h + e]: row
@@ -339,7 +345,7 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS, Cfg<D>::BLOCKS)
             float& x = sc[4 * j + 2 * h + e];
             if (!whole) {
               const int kj = k0 + 8 * j + 2 * t + e;
-              bool ok = kj < a.s;
+              bool ok = kj < a.t;
               if (a.causal) ok = ok && kj <= qi;
               if (a.window > 0) ok = ok && kj > qi - a.window;
               x = ok ? x : -INFINITY;
@@ -452,17 +458,17 @@ bool aligned16(const void* p, int elem, long long s0, long long s1,
 // cudaGetLastError() (0 on success); it neither synchronises nor allocates.
 extern "C" int flash_attn(const void* q, const void* k, const void* v,
                           float* out, float* lse, void* stream, int b, int s,
-                          int h, int kv, int d, int causal, int window,
+                          int t, int h, int kv, int d, int causal, int window,
                           int bf16, long long sqb, long long sqs,
                           long long sqh, long long skb, long long sks,
                           long long skh, long long svb, long long svs,
                           long long svh) {
   const int elem = bf16 ? 2 : 4;
-  if (b < 1 || b > 65535 || s < 1 || h < 1 || h > 65535 || kv < 1 ||
+  if (b < 1 || b > 65535 || s < 1 || t < 1 || h < 1 || h > 65535 || kv < 1 ||
       h % kv != 0 || window < 0 || !aligned16(q, elem, sqb, sqs, sqh) ||
       !aligned16(k, elem, skb, sks, skh) || !aligned16(v, elem, svb, svs, svh))
     return (int)cudaErrorInvalidValue;
-  Args a{q,   k,   v,   out, lse, b,   s,   h,   kv,  causal, window,
+  Args a{q,   k,   v,   out, lse, b,   s,   t,   h,   kv,  causal, window,
          (float)(1.4426950408889634 / sqrt((double)d)),
          sqb, sqs, sqh, skb, sks, skh, svb, svs, svh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -1,7 +1,9 @@
 """Wrapper of the hand-written Hopper flash_attn kernel: causal (or
 sliding-window, or bidirectional) grouped-query attention forward with
-an online softmax, the counterpart of `repro.kernels.flash_attn.ops.
-flash_attention` and of the JAX attention's flash branch.
+an online softmax, s queries against t keys, the counterpart of
+`repro.kernels.flash_attn.kernel.flash_attention_pallas` and of the JAX
+attention's flash branch (self-attention, the encoder's bidirectional
+self-attention and cross-attention).
 
 A CUDA tensor launches the kernel in `repro_torch/csrc/flash_attn.cu` or
 raises; a CPU tensor takes the plain version (`ref.
@@ -37,10 +39,10 @@ launches = 0
 # head_dim values the kernel is instantiated for
 HEAD_DIMS = (32, 64, 80, 128, 256)
 
-# The C entry point's parameters: q, k, v, out, lse, stream; b, s, H, KV,
-# D, causal, window (0: none), bf16; the strides of q, k and v over
+# The C entry point's parameters: q, k, v, out, lse, stream; b, s, t, H,
+# KV, D, causal, window (0: none), bf16; the strides of q, k and v over
 # (batch, sequence, head).
-ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 9
+ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_longlong] * 9
 
 
 @functools.cache
@@ -59,10 +61,10 @@ def build():
 def _check(q, k, v, window):
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError("flash_attention takes q (b, s, H, D) and k, v "
-                         "(b, s, KV, D)")
+                         "(b, t, KV, D)")
     b, s, h, d = q.shape
-    kv = k.shape[2]
-    if (k.shape[0], k.shape[1], k.shape[3]) != (b, s, d) or h % kv:
+    t, kv = k.shape[1], k.shape[2]
+    if (k.shape[0], k.shape[3]) != (b, d) or h % kv:
         raise ValueError(f"shapes do not agree: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
     if q.dtype not in (torch.float32, torch.bfloat16) or not (
@@ -72,11 +74,11 @@ def _check(q, k, v, window):
                          f"{v.dtype}")
     if len({q.device, k.device, v.device}) != 1:
         raise ValueError("q, k and v on several devices")
-    if min(b, s, h, d) < 1:
+    if min(b, s, t, h, d) < 1:
         raise ValueError("empty input")
     if window is not None and window < 1:
         raise ValueError(f"window {window} < 1 leaves queries no key")
-    return b, s, h, kv, d
+    return b, s, t, h, kv, d
 
 
 def _readable(t):
@@ -94,7 +96,7 @@ def _kernel_forward(q, k, v, causal, window):
     """Launch the kernel: out (b, s, H, D) float32, contiguous, and lse
     (b, H, s) float32."""
     global launches
-    b, s, h, kv, d = _check(q, k, v, window)
+    b, s, t, h, kv, d = _check(q, k, v, window)
     if q.device.type != "cuda":
         raise ValueError(f"the flash_attn kernel runs on CUDA tensors, not "
                          f"{q.device}")
@@ -108,7 +110,7 @@ def _kernel_forward(q, k, v, causal, window):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernel()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), stream, b, s, h, kv, d, int(causal),
+            lse.data_ptr(), stream, b, s, t, h, kv, d, int(causal),
             0 if window is None else window, int(q.dtype == torch.bfloat16),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
     if err != 0:
@@ -140,11 +142,11 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         b, s, h, d = q.shape
-        kv = k.shape[2]
+        t, kv = k.shape[1], k.shape[2]
         # a named range, so a profile can attribute the backward's device
         # time
         with torch.profiler.record_function("FlashAttention.backward"):
-            q_pos, k_pos = folded_positions(s, h // kv, q.device)
+            q_pos, k_pos = folded_positions(s, t, h // kv, q.device)
             dq, dk, dv = flash_backward(
                 fold_queries(q, kv), k.transpose(1, 2), v.transpose(1, 2),
                 q_pos, k_pos, d ** -0.5, fold_queries(out, kv),
@@ -155,9 +157,11 @@ class FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window=None):
-    """Attention of q (b, s, H, D) over k, v (b, s, KV, D), query and key
-    i at position i, scale D ** -0.5; key j is seen by query i when
-    j <= i (causal) and j > i - window (window set). Returns
+    """Attention of q (b, s, H, D) over k, v (b, t, KV, D), any t >= 1,
+    query i at position i and key j at position j, scale D ** -0.5; key
+    j is seen by query i when j <= i (causal) and j > i - window (window
+    set); bidirectional (causal=False, no window) every query sees all t
+    keys (the encoder's self-attention, cross-attention). Returns
     (b, s, H, D) float32."""
     if q.device.type == "cpu":
         fwd = _plain_forward

@@ -19,6 +19,11 @@ defaults to the worst case (`batch * ceil(max_len/block) + 1` blocks)
 and `--n-blocks` caps it (admission then waits for blocks). `--device`
 defaults to CUDA and fails without it.
 
+The encoder-decoder and vision families (whisper-base,
+llama-3.2-vision-90b) are refused with a ValueError: their cross caches
+need frontend features, which this CLI does not pass (nor does the JAX
+package's, whose engine then refuses them).
+
 `--tp N` (N > 1) spawns N gloo ranks, a model group of N
 (`launch.mesh.spawn(..., tp=N)`, sharing the card, or the CPU); every
 rank loads the same GLOBAL-shaped checkpoint, whatever tp it was
@@ -153,6 +158,16 @@ def _serve_rank(args, rank, world_size, device):
 
 def main(argv=None):
     args = _parser().parse_args(argv)
+    family = get_arch_config(args.arch).family
+    if family in ("encdec", "vlm"):
+        # JAX's CLI builds its engine without enc_feats_fn, so its engine
+        # refuses these families too
+        raise ValueError(
+            f"{args.arch}: the serve CLI passes no frontend features "
+            f"(enc_feats_fn), as the JAX package's CLI passes none, and the "
+            f"{family} family's cross caches need them; serve it with "
+            f"ServingEngine(cfg, params, enc_feats_fn=repro_torch.models."
+            f"specs.make_stub_enc_feats(cfg))")
     device = resolve_device(args.device)
     if args.tp > 1:
         # one gloo rank a model shard (ranks may share a card)

@@ -1,5 +1,4 @@
-"""The backbone-GAN (port of `repro.models.gan` for the dense, moe, ssm
-and hybrid families):
+"""The backbone-GAN (port of `repro.models.gan`):
 
   Generator      noise z (b, s, d_z) --z_proj--> backbone --out_proj-->
                  synthetic embedding sequence (b, s, d_model). The same
@@ -12,8 +11,11 @@ and hybrid families):
                  the discriminator's own embedding table.
 
 The MoE load-balance loss comes back as `aux` from both nets; the GAN
-spec drops it, as in the JAX package. Conditioned families
-(encoder-decoder, vision: `enc_feats`) wait for ROADMAP A13.
+spec drops it, as in the JAX package. The conditioned families take the
+stub frontend's features `enc_feats` (b, t, d_model) in both nets:
+whisper (encdec) runs them through the net's own encoder (`encoder`,
+built under the net's config), llama-3.2-vision (vlm) cross-attends to
+them as they are (the projector is part of the stub).
 
 Also the minimal MLP-GAN (`mlp_gan_init`, `mlp_gan_spec`): the
 dispatch-bound model of the JAX package's `benchmarks/driver_bench.py`.
@@ -27,7 +29,8 @@ import torch
 from repro_torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.protocol import GanModelSpec
-from repro_torch.models.backbone import backbone_apply, backbone_init
+from repro_torch.models.backbone import (backbone_apply, backbone_init,
+                                         encoder_apply, encoder_init)
 from repro_torch.nn import initializers
 from repro_torch.nn.linear import linear_apply
 
@@ -43,7 +46,7 @@ def disc_config(cfg: ArchConfig) -> ArchConfig:
 # ---------------------------------------------------------------------------
 
 def generator_init(generator: torch.Generator, cfg: ArchConfig):
-    return {
+    params = {
         "z_proj": initializers.lecun_normal(generator, (cfg.d_z, cfg.d_model)),
         "backbone": backbone_init(generator, cfg),
         "out_proj": initializers.lecun_normal(generator,
@@ -52,17 +55,37 @@ def generator_init(generator: torch.Generator, cfg: ArchConfig):
         "lm_head": initializers.lecun_normal(generator,
                                              (cfg.d_model, cfg.vocab)),
     }
+    if cfg.family == "encdec":
+        params["encoder"] = encoder_init(generator, cfg)
+    return params
 
 
-def generator_apply(params, cfg: ArchConfig, z, *, remat: bool = True,
-                    tp_axis=None):
+def _encode(params, cfg: ArchConfig, enc_feats, *, remat: bool):
+    """The cross sublayers' states from the stub frontend's features:
+    the net's encoder over them (encdec), the features themselves (vlm),
+    None for the other families."""
+    if cfg.family == "encdec":
+        if enc_feats is None:
+            raise ValueError(f"{cfg.name} needs encoder features")
+        return encoder_apply(params["encoder"], cfg, enc_feats, remat=remat)
+    if cfg.family == "vlm":
+        if enc_feats is None:
+            raise ValueError(f"{cfg.name} needs image embeddings")
+        return enc_feats
+    return None
+
+
+def generator_apply(params, cfg: ArchConfig, z, *, enc_feats=None,
+                    remat: bool = True, tp_axis=None):
     """GAN mode: noise sequence -> (synthetic embedding sequence
-    (b, s, d), aux). tp_axis runs the backbone's feed-forward blocks
+    (b, s, d), aux). enc_feats: the conditioned families' frontend
+    features (b, t, d). tp_axis runs the backbone's feed-forward blocks
     Megatron-style over the model group (`params` hold its shards; the
     projections here replicate)."""
     h = z @ params["z_proj"].to(z.dtype)
+    enc_h = _encode(params, cfg, enc_feats, remat=remat)
     out = backbone_apply(params["backbone"], cfg, h, mode="train",
-                         remat=remat, tp_axis=tp_axis)
+                         enc_h=enc_h, remat=remat, tp_axis=tp_axis)
     fake = out["h"] @ params["out_proj"].to(h.dtype)
     return fake, out["aux"]
 
@@ -79,15 +102,17 @@ def generator_lm_apply(params, cfg: ArchConfig, tokens, *,
     """LM mode: tokens (b, s) -> {"logits" (b, s, vocab), "aux",
     "caches"}. Serving's prefill and decode conventions (any-position
     decode, chunked prefill, paged caches) are `backbone_apply`'s;
-    tp_axis: the Megatron feed-forward over the model group (the
-    sharded-leaf contract of training)."""
-    if enc_feats is not None:
-        raise NotImplementedError(f"{cfg.name}: encoder and image features "
-                                  f"(enc_feats) are not ported (ROADMAP A13)")
+    enc_feats: the conditioned families' frontend features, read in
+    train and prefill (decode attends through the prefilled cross
+    caches, so the encoder does not run); tp_axis: the Megatron
+    feed-forward over the model group (the sharded-leaf contract of
+    training)."""
     h = nn.embedding_apply(params["embed"], tokens)
+    enc_h = None if mode == "decode" else _encode(params, cfg, enc_feats,
+                                                  remat=remat)
     out = backbone_apply(params["backbone"], cfg, h, mode=mode,
                          caches=caches, cache_index=cache_index,
-                         positions=positions, remat=remat,
+                         positions=positions, enc_h=enc_h, remat=remat,
                          prefill_cache_len=prefill_cache_len,
                          cache_write_mask=cache_write_mask,
                          paged_table=paged_table, tp_axis=tp_axis)
@@ -100,13 +125,17 @@ def generator_lm_apply(params, cfg: ArchConfig, tokens, *,
 # ---------------------------------------------------------------------------
 
 def discriminator_init(generator: torch.Generator, cfg: ArchConfig):
-    return {
+    dcfg = disc_config(cfg)
+    params = {
         "in_proj": initializers.lecun_normal(generator,
                                              (cfg.d_model, cfg.d_model)),
-        "backbone": backbone_init(generator, disc_config(cfg)),
+        "backbone": backbone_init(generator, dcfg),
         "embed": nn.embedding_init(generator, cfg.vocab, cfg.d_model),
         "score": initializers.lecun_normal(generator, (cfg.d_model, 1)),
     }
+    if cfg.family == "encdec":
+        params["encoder"] = encoder_init(generator, dcfg)
+    return params
 
 
 def discriminator_embed(params, tokens):
@@ -115,13 +144,16 @@ def discriminator_embed(params, tokens):
 
 
 def discriminator_apply(params, cfg: ArchConfig, x_embed, *,
-                        remat: bool = True, tp_axis=None):
+                        enc_feats=None, remat: bool = True, tp_axis=None):
     """x_embed: (b, s, d) — real (embedded tokens) or fake (generator
-    out). Returns (per-example logits (b,), aux). tp_axis as in
+    out). Returns (per-example logits (b,), aux). enc_feats go through
+    the discriminator's own encoder, under its config; tp_axis as in
     generator_apply."""
+    dcfg = disc_config(cfg)
     h = x_embed @ params["in_proj"].to(x_embed.dtype)
-    out = backbone_apply(params["backbone"], disc_config(cfg), h,
-                         mode="train", remat=remat, tp_axis=tp_axis)
+    enc_h = _encode(params, dcfg, enc_feats, remat=remat)
+    out = backbone_apply(params["backbone"], dcfg, h, mode="train",
+                         enc_h=enc_h, remat=remat, tp_axis=tp_axis)
     pooled = torch.mean(out["h"].float(), dim=1)
     logit = pooled @ params["score"].float()
     return logit[..., 0], out["aux"]

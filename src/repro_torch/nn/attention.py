@@ -5,9 +5,13 @@ The dispatch is the JAX package's: without a cache or an extra mask,
 when s * t reaches _FLASH_THRESHOLD, the blockwise flash path runs (on
 a CUDA tensor the Hopper kernel of `repro_torch.kernels.flash_attn`, on
 a CPU tensor its plain version); otherwise the naive softmax over the
-full (s, t) scores. The flash kernel takes self-attention with query
-and key i at position i; other flash-sized calls (explicit positions,
-`kv_x`, `kv_override`) raise.
+full (s, t) scores. The flash kernel takes s queries at positions
+0..s-1 against t keys at 0..t-1: it takes every flash-sized call whose
+mask does not depend on positions (bidirectional: the encoder's
+self-attention and cross-attention, with `kv_x`, `kv_override` or
+explicit positions), and causal or windowed self-attention at the
+default positions. A causal or windowed flash-sized call with explicit
+positions, `kv_x` or `kv_override` raises.
 
 Caches are updated in place where the JAX package returns a new
 (donated) cache, and a write that JAX drops (`mode="drop"`: a masked
@@ -317,11 +321,14 @@ def attention_apply(params, x, *, n_heads: int, n_kv_heads: int,
     t = k.shape[1]
     scale = head_dim ** -0.5
     if extra_mask is None and cache is None and s * t >= _FLASH_THRESHOLD:
-        if explicit_positions or kv_x is not None or kv_override is not None:
+        if (causal or window is not None) and (
+                explicit_positions or kv_x is not None
+                or kv_override is not None):
             raise NotImplementedError(
-                "the flash path takes self-attention with query and key i "
-                "at position i; explicit positions, kv_x and kv_override "
-                "run below the flash threshold")
+                "the flash path's causal and window masks take query i and "
+                "key j at positions i and j; a causal or windowed call with "
+                "explicit positions, kv_x or kv_override runs below the "
+                "flash threshold")
         if flash_repeat_kv and group > 1:
             # k/v repeated to all H heads: the kernel runs with KV = H
             ctx = flash_ops.flash_attention(
@@ -329,7 +336,7 @@ def attention_apply(params, x, *, n_heads: int, n_kv_heads: int,
                 v.repeat_interleave(group, dim=2), causal=causal,
                 window=window)
         else:
-            # (b, s, H, hd) queries against the unrepeated (b, s, KV, hd)
+            # (b, s, H, hd) queries against the unrepeated (b, t, KV, hd)
             ctx = flash_ops.flash_attention(q, k, v, causal=causal,
                                             window=window)
     else:

@@ -1,5 +1,5 @@
-"""Normalization layers: RMSNorm (the backbones) and batch-norm for the
-DCGAN (NHWC), in batch-statistics mode."""
+"""Normalization layers: RMSNorm (the backbones), LayerNorm (whisper)
+and batch-norm for the DCGAN (NHWC), in batch-statistics mode."""
 from __future__ import annotations
 
 import torch
@@ -34,3 +34,21 @@ def rmsnorm_apply(params, x, *, eps: float = 1e-6):
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
     y = x * (var + eps) ** -0.5
     return (y * params["scale"].float()).to(dtype)
+
+
+def layernorm_init(d: int, *, device=None):
+    return {"scale": torch.ones(d, device=device),
+            "bias": torch.zeros(d, device=device)}
+
+
+def layernorm_apply(params, x, *, eps: float = 1e-5):
+    """In float32 with the biased variance and `(var + eps) ** -0.5`, as
+    the JAX package computes it; the result takes x's dtype. eps is
+    LayerNorm's own 1e-5, not the config's `norm_eps`."""
+    dtype = x.dtype
+    x = x.float()
+    mean = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.var(x, dim=-1, keepdim=True, correction=0)
+    y = (x - mean) * (var + eps) ** -0.5
+    y = y * params["scale"].float() + params["bias"].float()
+    return y.to(dtype)

@@ -1,6 +1,5 @@
 """Continuous-batching serving engine for the generator as a causal LM
-(port of `repro.serving.engine`, for the dense, moe, ssm and hybrid
-families).
+(port of `repro.serving.engine`, for every family).
 
 One step per engine iteration covers the whole request mix:
 
@@ -13,7 +12,12 @@ One step per engine iteration covers the whole request mix:
     programs) runs in the same step as the decode batch, against the
     same caches, its padded tail masked to exact no-ops;
   * paged KV caches (`serving.cache`): full-attention caches are shared
-    block pools addressed through per-slot block tables.
+    block pools addressed through per-slot block tables;
+  * cross caches (the encoder-decoder and vision families): the stub
+    frontend's features (`enc_feats_fn(1)`) do not depend on the
+    request, so every cross sublayer's projected k/v is computed once at
+    construction (the encoder first, for encdec) and copied into every
+    slot's dense cross cache; they are never paged, reset or rewritten.
 
 Sampling is keyed by (seed, rid, token_index): a request's tokens are a
 function of the request alone, whatever the batch, the schedule or the
@@ -45,8 +49,8 @@ checkpoint serves at any tp. Rank 0 hands out the finished requests
 gloo group the collectives go through the host, so the steps run
 uncaptured; capturing them under NCCL across cards waits for a machine
 with several (ROADMAP item 1). MoE and fuse_proj configs refuse tp > 1,
-as in the JAX package; the encoder-decoder and vision families raise at
-any tp (A13). A step routes MoE tokens dropless (`nn.moe`) while its
+as in the JAX package; the cross caches are filled from the global
+parameters. A step routes MoE tokens dropless (`nn.moe`) while its
 tokens times top_k stay within `nn.moe._DROPLESS_EXACT_LIMIT` (4,096):
 prefill_chunk x top_k for a prefill step, batch_size x top_k for a
 decode step. A request's tokens then do not depend on what else is in
@@ -59,7 +63,7 @@ from __future__ import annotations
 
 import dataclasses
 from collections import deque
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -69,7 +73,7 @@ from repro_torch.core.graphs import _sync_debug_error
 from repro_torch.device import resolve_device
 from repro_torch.launch import mesh
 from repro_torch.models import gan
-from repro_torch.models.backbone import _check_family, init_decode_caches
+from repro_torch.models.backbone import fill_cross_caches, init_decode_caches
 from repro_torch.serving import cache as paging
 from repro_torch.sharding import rules
 from repro_torch.tree import tree_map
@@ -168,13 +172,15 @@ class ServingEngine:
     """Slot-based continuous batching over a fixed decode batch of B
     slots (module docstring). block_size=None serves from dense per-slot
     caches; an int turns on the paged pool. `device` defaults to CUDA;
-    the parameters are moved there."""
+    the parameters are moved there. enc_feats_fn(n) gives the
+    conditioned families' frontend features (`models.specs.
+    make_stub_enc_feats`); they need it."""
 
     def __init__(self, cfg: ArchConfig, gen_params, *, batch_size: int = 4,
                  max_len: int = 256, block_size: Optional[int] = None,
                  n_blocks: Optional[int] = None, prefill_chunk: int = 32,
-                 seed: int = 0, tp: int = 1, cache_dtype=torch.float32,
-                 device=None):
+                 enc_feats_fn: Optional[Callable] = None, seed: int = 0,
+                 tp: int = 1, cache_dtype=torch.float32, device=None):
         if tp > 1:
             if cfg.moe is not None:
                 raise ValueError(
@@ -184,14 +190,18 @@ class ServingEngine:
                 raise ValueError(
                     f"{cfg.name}: fuse_proj=True cannot be tensor-parallel "
                     f"(fused leaves have no per-shard name rule)")
-        _check_family(cfg)        # encdec, vlm: ROADMAP A13
+        if cfg.family in ("encdec", "vlm") and enc_feats_fn is None:
+            raise ValueError(f"{cfg.name} needs enc_feats_fn: its cross "
+                             f"caches hold the frontend's features")
         self.cfg = cfg
+        self.enc_feats_fn = enc_feats_fn
         self.tp = tp
         self.tp_rank = 0
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             # the card by index, so that a front end's thread can select it
             self.device = torch.device("cuda", torch.cuda.current_device())
+        global_params = gen_params
         if tp > 1:
             group = mesh.axis_group("model")
             err = mesh.tp_mesh_error(group, tp)
@@ -228,6 +238,8 @@ class ServingEngine:
             self.alloc = None
         self.table = np.zeros((batch_size, self.max_blocks), dtype=np.int32)
 
+        self._fill_cross_caches(self.params if tp == 1 else global_params)
+        del global_params
         self.slots: list[Optional[_Slot]] = [None] * batch_size
         self.queue: deque[Request] = deque()
         self.rejected: list[Request] = []
@@ -241,6 +253,26 @@ class ServingEngine:
         # collectives of tp > 1 cannot be captured
         self._capture = self.device.type == "cuda" and tp == 1
         self._init_io()
+
+    # -- construction helpers ---------------------------------------------
+
+    def _fill_cross_caches(self, params):
+        """Fill every slot's cross caches once from the global generator
+        parameters (`backbone.fill_cross_caches`), moving to the card
+        only what it reads: the encoder and the cross sublayers'
+        attention."""
+        cfg = self.cfg
+        if cfg.family not in ("encdec", "vlm"):
+            return
+        groups = params["backbone"]["groups"]
+        read = {"backbone": {"groups": {
+            f"sub{i}": {"attn": groups[f"sub{i}"]["attn"]}
+            for i, kind in enumerate(cfg.group_pattern) if kind == "cross"}}}
+        if cfg.family == "encdec":
+            read["encoder"] = params["encoder"]
+        fill_cross_caches(self.caches, tree_map(
+            lambda x: torch.as_tensor(x).to(self.device), read), cfg,
+            self.enc_feats_fn(1).to(self.device))
 
     # -- the static step buffers ------------------------------------------
 

@@ -28,6 +28,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp
 import torch
 
+from repro.kernels.flash_attn import kernel as jflash_kernel
 from repro.kernels.flash_attn import ops as jflash_ops
 from repro.nn import attention as jattention
 from repro.nn import flash_ref as jflash_ref
@@ -38,6 +39,7 @@ from repro_torch.kernels.flash_attn import ops, ref
 from repro_torch.nn import attention, flash_ref, mlp, rope
 from repro_torch.tree import tree_leaves, tree_map
 from torch_tf32 import matmul_tf32
+from test_torch_checkpoint import level0
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from torch_world import world_of_one
 
@@ -236,6 +238,67 @@ def test_plain_version_matches_jax_kernel_at_head_dim_80(s, window, causal,
                                atol=2e-5 if dtype == "float32" else 0.05)
 
 
+# (sq, sk, causal) at multiples of the Pallas kernel's 16-row blocks:
+# cross-attention's key lengths of their own, longer and shorter, and the
+# causal mask over them (query i at position i, key j at position j)
+CROSS_KERNEL_CASES = [(32, 48, False), (48, 16, False), (32, 48, True),
+                      (48, 32, True)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sq,sk,causal", CROSS_KERNEL_CASES)
+def test_plain_version_matches_pallas_kernel_at_a_key_length_of_its_own(
+        sq, sk, causal, dtype):
+    """The plain version at SQ != SK against `flash_attention_pallas`
+    itself in interpret mode (the JAX wrapper is self-attention only):
+    (b, H) folded into its BH axis, each query head against its kv
+    head's keys, GQA H=4 over KV=2."""
+    b, nh, nkv, hd = 2, 4, 2, 16
+    q = normals(b, sq, nh, hd, seed=0)
+    k, v = (normals(b, sk, nkv, hd, seed=i) for i in (1, 2))
+    jdtype = jnp.float32 if dtype == "float32" else jnp.bfloat16
+
+    def bh(a):     # (b, n, h, d) -> (b * H, n, d), kv heads repeated
+        a = np.repeat(a, nh // a.shape[2], axis=2)
+        return jnp.asarray(a.transpose(0, 2, 1, 3).reshape(
+            b * nh, a.shape[1], hd), jdtype)
+
+    want = jflash_kernel.flash_attention_pallas(
+        bh(q), bh(k), bh(v), scale=hd ** -0.5, causal=causal, bq=16,
+        bk=16, interpret=True)
+    want = np.asarray(want, np.float32).reshape(b, nh, sq, hd).transpose(
+        0, 2, 1, 3)
+    got = ops.flash_attention(*(torch.tensor(a).to(getattr(torch, dtype))
+                                for a in (q, k, v)), causal=causal)
+    assert got.dtype == torch.float32 and got.shape == (b, sq, nh, hd)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=2e-5 if dtype == "float32" else 0.05)
+
+
+@pytest.mark.parametrize("sq,sk,causal,window", [(37, 53, False, None),
+                                                 (53, 37, True, 30)])
+def test_plain_version_matches_the_oracle_at_ragged_key_lengths(
+        sq, sk, causal, window):
+    """At lengths off the Pallas blocks: the plain version (out and lse)
+    against `flash_attention_ref`, the Pallas kernel's oracle, with query
+    positions 0..sq-1 and key positions 0..sk-1."""
+    q = normals(1, sq, 4, 32, seed=0)
+    k, v = (normals(1, sk, 2, 32, seed=i) for i in (1, 2))
+    folded = ref.fold_queries(torch.tensor(q), 2).numpy()
+    jout, jlse = jflash_ref._flash_fwd_inner(
+        jnp.asarray(folded), *(jnp.asarray(a.transpose(0, 2, 1, 3))
+                               for a in (k, v)),
+        jnp.asarray(np.tile(np.arange(sq, dtype=np.int32), 2))[None, None],
+        jnp.asarray(np.arange(sk, dtype=np.int32))[None, None], None,
+        32 ** -0.5, causal, window, 512, False)
+    out, lse = ref.flash_attention_plain(*map(torch.tensor, (q, k, v)),
+                                         causal=causal, window=window)
+    np.testing.assert_allclose(ref.fold_queries(out, 2).numpy(),
+                               np.asarray(jout), rtol=0, atol=2e-5)
+    np.testing.assert_allclose(lse.reshape(1, 2, -1).numpy(),
+                               np.asarray(jlse), rtol=0, atol=2e-5)
+
+
 def test_plain_lse_is_the_row_log_sum_exp():
     q, k, v = (torch.tensor(normals(1, 70, h, 32, seed=i))
                for i, h in enumerate((4, 2, 2)))
@@ -290,8 +353,14 @@ def test_kernel_reads_aligned_views_in_place_and_copies_the_rest():
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():
     q, k, v = (torch.zeros(1, 8, h, 32) for h in (4, 2, 2))
+    # a key length of its own is taken (cross-attention); a head_dim or
+    # batch of its own is not
+    assert ops.flash_attention(q, k[:, :4], v[:, :4]).shape == (1, 8, 4, 32)
     with pytest.raises(ValueError, match="shapes"):
-        ops.flash_attention(q, k[:, :4], v[:, :4])
+        ops.flash_attention(q, k[..., :16], v[..., :16])
+    with pytest.raises(ValueError, match="shapes"):
+        ops.flash_attention(q, k.expand(2, -1, -1, -1),
+                            v.expand(2, -1, -1, -1))
     with pytest.raises(ValueError, match="shapes"):
         ops.flash_attention(q, torch.zeros(1, 8, 3, 32),
                             torch.zeros(1, 8, 3, 32))
@@ -344,6 +413,71 @@ def test_attention_matches_jax(s, qk_norm):
     for t, want in zip(tree_leaves(tparams), jax.tree_util.tree_leaves(jgp)):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(want), rtol=0,
                                    atol=1e-4)
+
+
+def test_cross_attention_takes_the_flash_branch_as_jax(monkeypatch):
+    """Flash-sized calls whose mask does not depend on positions take
+    the flash branch in both packages: cross-attention (s 520 queries
+    against t 600 keys from kv_x, no RoPE), its values and gradients
+    (x, kv_x and every parameter) against `jax.grad` of JAX's attention
+    to 1e-5; the same keys pre-projected (`kv_override`, cross-attention
+    decode) and the encoder's bidirectional self-attention at explicit
+    positions, values to 1e-5 (the weights' gradients to 1e-5 relative
+    as well). A causal call with kv_x still raises."""
+    jparams, x, kw, hd = attention_case(520, False)
+    x = x[:1]
+    enc = normals(1, 600, 64, seed=5)
+    cot = normals(1, 520, 64, seed=3)
+    taken = []
+    tref = ops.flash_attention
+    monkeypatch.setattr(ops, "flash_attention", lambda *a, **k: (
+        taken.append((a[0].shape[1], a[1].shape[1])), tref(*a, **k))[1])
+
+    def jloss(p, x, e):
+        y = jattention.attention_apply(p, x, causal=False, kv_x=e, **kw)
+        return jnp.sum(y * cot), y
+
+    (_, jy), jgrads = level0(jax.value_and_grad(
+        jloss, argnums=(0, 1, 2), has_aux=True))(
+        jparams, jnp.asarray(x), jnp.asarray(enc))
+    tparams = tree_map(lambda t: t.requires_grad_(),
+                       interop.to_torch(jax.device_get(jparams), "cpu"))
+    tx, tenc = (torch.tensor(a, requires_grad=True) for a in (x, enc))
+    y = attention.attention_apply(tparams, tx, causal=False, kv_x=tenc,
+                                  **kw)
+    assert taken == [(520, 600)]
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(jy), rtol=0,
+                               atol=1e-5)
+    torch.sum(y * torch.tensor(cot)).backward()
+    got = tree_leaves(tparams) + [tx, tenc]
+    want = jax.tree_util.tree_leaves(jgrads)
+    assert len(got) == len(want)
+    for i, (t, w) in enumerate(zip(got, want)):
+        # the weights' gradients sum 520 x 600 pairs and reach ~10: their
+        # float32 round-off is relative
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w),
+                                   rtol=1e-5 if i < len(got) - 2 else 0,
+                                   atol=1e-5)
+    tparams = interop.to_torch(jax.device_get(jparams), "cpu")
+    kv = jattention.attention_kv(jparams, jnp.asarray(enc), n_kv_heads=2)
+    for jcall, tcall in (
+            (dict(kv_override=kv),
+             dict(kv_override=interop.to_torch(kv, "cpu"))),
+            (dict(q_positions=jnp.arange(520)[None] + 3,
+                  inv_freq=jrope.rope_frequencies(hd)),
+             dict(q_positions=torch.arange(520)[None] + 3,
+                  inv_freq=rope.rope_frequencies(hd)))):
+        want = jattention.attention_apply(jparams, jnp.asarray(x),
+                                          causal=False, **kw, **jcall)
+        with torch.no_grad():
+            got = attention.attention_apply(tparams, torch.tensor(x),
+                                            causal=False, **kw, **tcall)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=1e-5)
+    assert taken == [(520, 600)] * 2 + [(520, 520)]
+    with pytest.raises(NotImplementedError, match="flash path"):
+        attention.attention_apply(tparams, torch.tensor(x),
+                                  kv_x=torch.tensor(enc), **kw)
 
 
 def test_flash_branch_starts_at_the_same_length_as_jax(monkeypatch):
@@ -436,7 +570,8 @@ LOG2E = 1.4426950408889634
 
 
 def kernel_schedule(q, k, v, causal=True, window=None, mm=torch.matmul):
-    """The CUDA kernel's algorithm on q (b, s, H, D), k, v (b, s, KV, D):
+    """The CUDA kernel's algorithm on q (b, s, H, D), k, v (b, t, KV, D)
+    (query i at position i, key j at position j):
     blocks of 64-row warpgroups (each 4 warps of 16 rows), each over the
     key tiles of its block's reachable range, skipping tiles none of its
     rows can see; per tile S = (log2(e) / sqrt(D) Q) K^T, an online
@@ -445,15 +580,16 @@ def kernel_schedule(q, k, v, causal=True, window=None, mm=torch.matmul):
     fragment reads them; lse = m ln 2 + ln l. Returns (out (b, s, H, D),
     lse (b, H, s)); `mm` takes every matrix product."""
     b, s, h, d = q.shape
+    t = k.shape[1]
     g = h // k.shape[2]
     groups, bk = KERNEL_TILES[d]
     bq = 64 * groups
     out = torch.zeros(b, s, h, d, dtype=q.dtype)
     lse = torch.zeros(b, h, s, dtype=q.dtype)
 
-    def rows(t, start, n):   # rows [start, start + n) of t (s, D), 0 past s
-        return torch.nn.functional.pad(t[start:start + n],
-                                       (0, 0, 0, max(0, start + n - s)))
+    def rows(x, start, n):   # rows [start, start + n) of x (len, D), 0 past
+        return torch.nn.functional.pad(
+            x[start:start + n], (0, 0, 0, max(0, start + n - x.shape[0])))
 
     for bi in range(b):
         for hi in range(h):
@@ -462,7 +598,7 @@ def kernel_schedule(q, k, v, causal=True, window=None, mm=torch.matmul):
             for z in range(n_qt):
                 q0 = (n_qt - 1 - z) * bq
                 q_last = min(q0 + bq - 1, s - 1)
-                kt_end = (q_last if causal else s - 1) // bk
+                kt_end = (min(q_last, t - 1) if causal else t - 1) // bk
                 kt_begin = ((q0 - window + 1) // bk
                             if window and q0 - window + 1 > 0 else 0)
                 for r0 in range(q0, q0 + bq, 64):
@@ -480,7 +616,7 @@ def kernel_schedule(q, k, v, causal=True, window=None, mm=torch.matmul):
                             continue
                         kj = k0 + torch.arange(bk)
                         sc = mm(qw, rows(kq, k0, bk).T)
-                        ok = (kj < s)[None, :].expand(64, bk)
+                        ok = (kj < t)[None, :].expand(64, bk)
                         if causal:
                             ok = ok & (kj[None, :] <= qi[:, None])
                         if window:
@@ -505,16 +641,23 @@ def kernel_schedule(q, k, v, causal=True, window=None, mm=torch.matmul):
     return out, lse
 
 
-# (D, s, window, causal): ragged last key and query tiles, GQA H=4 over
-# KV=2; s = 150 at D = 32 gives three 64-row warpgroups, the last one
-# ragged, and a window that skips whole key tiles; D = 80 (zamba2-2.7b)
-# tiles D in steps of 8, not of 32
+# (D, s, window, causal, t): ragged last key and query tiles, GQA H=4
+# over KV=2; s = 150 at D = 32 gives three 64-row warpgroups, the last
+# one ragged, and a window that skips whole key tiles; D = 80
+# (zamba2-2.7b) tiles D in steps of 8, not of 32. t != s: cross-attention
+# (bidirectional, t > s and t < s, t below one key tile), and causal and
+# windowed masks over a key length of their own (every query sees a key)
 SCHEDULE_CASES = {
-    "d32-s150": (32, 150, None, True),
-    "d32-s150-w9": (32, 150, 9, True),
-    "d256-s45-w20": (256, 45, 20, True),
-    "d256-s45-bidirectional": (256, 45, None, False),
-    "d80-s150-w40": (80, 150, 40, True),
+    "d32-s150": (32, 150, None, True, 150),
+    "d32-s150-w9": (32, 150, 9, True, 150),
+    "d256-s45-w20": (256, 45, 20, True, 45),
+    "d256-s45-bidirectional": (256, 45, None, False, 45),
+    "d80-s150-w40": (80, 150, 40, True, 150),
+    "d64-s100-t150-bidirectional": (64, 100, None, False, 150),
+    "d128-s90-t37-bidirectional": (128, 90, None, False, 37),
+    "d32-s70-t5-bidirectional": (32, 70, None, False, 5),
+    "d32-s150-t70-causal": (32, 150, None, True, 70),
+    "d64-s60-t130-w30": (64, 60, 30, True, 130),
 }
 
 
@@ -523,8 +666,9 @@ def test_kernel_schedule_matches_jax(case):
     """The mirror, with the kernel's 3xTF32 products, against the JAX
     package's blockwise oracle of flash_attention_pallas (out and lse),
     to the kernel's tolerance."""
-    d, s, window, causal = SCHEDULE_CASES[case]
-    q, k, v = (normals(1, s, h, d, seed=i) for i, h in enumerate((4, 2, 2)))
+    d, s, window, causal, t = SCHEDULE_CASES[case]
+    q, k, v = (normals(1, n, h, d, seed=i)
+               for i, (n, h) in enumerate(((s, 4), (t, 2), (t, 2))))
     out, lse = kernel_schedule(*map(torch.tensor, (q, k, v)), causal,
                                window, mm=matmul_tf32(3))
     folded = ref.fold_queries(torch.tensor(q), 2).numpy()
@@ -532,7 +676,8 @@ def test_kernel_schedule_matches_jax(case):
     jout, jlse = jflash_ref._flash_fwd_inner(
         jnp.asarray(folded), *(jnp.asarray(a.transpose(0, 2, 1, 3))
                                for a in (k, v)),
-        jnp.asarray(np.tile(pos, 2))[None, None], jnp.asarray(pos)[None, None],
+        jnp.asarray(np.tile(pos, 2))[None, None],
+        jnp.asarray(np.arange(t, dtype=np.int32))[None, None],
         None, d ** -0.5, causal, window, 512, False)
     np.testing.assert_allclose(
         ref.fold_queries(out, 2).numpy(), np.asarray(jout), rtol=0, atol=2e-5)

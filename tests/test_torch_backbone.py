@@ -83,19 +83,20 @@ def test_arch_configs_match_jax():
         assert dataclasses.asdict(port) == dataclasses.asdict(ref)
         assert port.group_pattern == ref.group_pattern
         assert port.n_groups_stack == ref.n_groups_stack
-    # every dense, ssm, moe and hybrid config of the JAX package, in its
-    # order, and no other
-    assert list_archs() == ["mamba2-130m", "mixtral-8x22b", "granite-3-2b",
-                            "qwen3-1.7b", "granite-moe-3b-a800m",
-                            "zamba2-2.7b", "gemma3-12b", "minitron-4b"]
-    assert list_archs() == [name for name in jlist_archs()
-                            if jget_arch_config(name).family
-                            in ("dense", "moe", "ssm", "hybrid")]
+    # every config of the JAX package, in its order, and no other (the
+    # encoder-decoder and vision configs, once refused, included)
+    assert list_archs() == jlist_archs() == [
+        "mamba2-130m", "mixtral-8x22b", "whisper-base", "granite-3-2b",
+        "qwen3-1.7b", "granite-moe-3b-a800m", "zamba2-2.7b", "gemma3-12b",
+        "minitron-4b", "llama-3.2-vision-90b"]
+    for name in list_archs():
+        assert dataclasses.asdict(get_arch_config(name)) == \
+            dataclasses.asdict(jget_arch_config(name))
     assert dataclasses.asdict(get_arch_config("dcgan")) == \
         dataclasses.asdict(jget_arch_config("dcgan"))
-    for name in ("whisper-base", "llama-3.2-vision-90b"):
-        with pytest.raises(KeyError, match="A13"):
-            get_arch_config(name)
+    for get in (get_arch_config, jget_arch_config):
+        with pytest.raises(KeyError, match="unknown architecture"):
+            get("whisper-large")
 
 
 def test_full_width_parameter_counts_and_shapes_match_jax():
@@ -184,18 +185,40 @@ def test_remat_gives_the_same_values_and_gradients():
 
 
 def test_backbone_refuses_what_is_not_ported(tmp_path):
-    qwen = get_arch_config("qwen3-1.7b").reduced()
-    encdec = dataclasses.replace(qwen, family="encdec", n_enc_layers=2)
-    vlm = dataclasses.replace(qwen, family="vlm", cross_attn_every=2)
-    for cfg in (encdec, vlm):
-        with pytest.raises(NotImplementedError, match="A13"):
-            tbackbone.backbone_init(torch.Generator(), cfg)
-        with pytest.raises(NotImplementedError, match="A13"):
-            tgan.gan_init(torch.Generator(), cfg)
+    # the encoder-decoder and vision families, once refused, build JAX's
+    # trees and give its hidden states (here on qwen3's reduced widths,
+    # with qk-norm in the cross sublayers and the vision gates open)
+    rng = np.random.default_rng(1)
+    h, e = (rng.standard_normal((1, n, 256)).astype(np.float32)
+            for n in (6, 5))
+    for changes in (dict(family="encdec", n_enc_layers=2),
+                    dict(family="vlm", cross_attn_every=2, n_layers=3)):
+        cfg, jcfg = (dataclasses.replace(get("qwen3-1.7b").reduced(),
+                                         **changes)
+                     for get in (get_arch_config, jget_arch_config))
+        params = tgan.gan_init(torch.Generator().manual_seed(0), cfg)
+        shapes = jax.eval_shape(lambda k: jgan.gan_init(k, jcfg), KEY)
+        assert ([tuple(x.shape) for x in tree_leaves(params)]
+                == [x.shape for x in jax.tree_util.tree_leaves(shapes)])
+        assert ("encoder" in params["gen"]) == (cfg.family == "encdec")
+        bb = params["gen"]["backbone"]
+        for sub in bb["groups"].values():
+            if "gate_attn" in sub:
+                sub["gate_attn"].fill_(0.5)
+                sub["gate_ff"].fill_(-0.4)
+        want = jbackbone.backbone_apply(
+            jax.tree_util.tree_map(jnp.asarray, interop.to_numpy(bb)), jcfg,
+            jnp.asarray(h), enc_h=jnp.asarray(e), remat=False)["h"]
+        with torch.no_grad():
+            got = tbackbone.backbone_apply(bb, cfg, torch.tensor(h),
+                                           enc_h=torch.tensor(e))["h"]
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                                   atol=1e-5)
     # prefill, once refused, gives JAX's hidden states and decode state;
-    # encoder states (A13) stay refused; tensor parallelism, once
-    # refused, needs a model group and is the identity on a group of one
-    # rank (mamba2's backbone has no feed-forward to shard)
+    # encoder states, once refused, are ignored by a family without
+    # cross sublayers, as in JAX; tensor parallelism, once refused, needs
+    # a model group and is the identity on a group of one rank (mamba2's
+    # backbone has no feed-forward to shard)
     params = tbackbone.backbone_init(torch.Generator().manual_seed(0), TCFG)
     h = np.random.default_rng(2).standard_normal(
         (1, 4, TCFG.d_model)).astype(np.float32)
@@ -210,8 +233,15 @@ def test_backbone_refuses_what_is_not_ported(tmp_path):
         np.testing.assert_allclose(g.detach().numpy(), np.asarray(w),
                                    rtol=1e-5, atol=1e-5)
     th = torch.tensor(h)
-    with pytest.raises(NotImplementedError, match="A13"):
-        tbackbone.backbone_apply(params, TCFG, th, enc_h=th)
+    with torch.no_grad():
+        got = tbackbone.backbone_apply(params, TCFG, th, enc_h=th)["h"]
+        assert torch.equal(got, tbackbone.backbone_apply(params, TCFG,
+                                                         th)["h"])
+    want = jbackbone.backbone_apply(
+        jax.tree_util.tree_map(jnp.asarray, interop.to_numpy(params)), JCFG,
+        jnp.asarray(h), enc_h=jnp.asarray(h), remat=False)["h"]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
     with pytest.raises(RuntimeError, match="no 'model' process group"):
         dense = get_arch_config("qwen3-1.7b").reduced()
         tbackbone.backbone_apply(

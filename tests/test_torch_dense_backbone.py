@@ -210,15 +210,29 @@ def _round_matches_jax(variant, seq=SEQ):
     round_matches_jax(*cfgs(variant), jax_params(variant), seq)
 
 
-def round_matches_jax(jcfg, tcfg, params, seq, remat=False):
+def round_matches_jax(jcfg, tcfg, params, seq, remat=False, enc_feats=None,
+                      optimizer="adam", zero_grad=()):
     """`_round_matches_jax` for the backbone-GAN of the JAX and port
     configs `jcfg`, `tcfg` from the numpy parameters `params`; remat
-    recomputes each group in both packages' backwards."""
+    recomputes each group in both packages' backwards. enc_feats: the
+    conditioned families' (1, t, d) frontend features, broadcast over
+    the batch in both packages (as `make_stub_enc_feats` does). With
+    optimizer "sgd" the uploaded discriminator agrees to one
+    quantization step plus 1e-5 and the generator to 1e-5. zero_grad:
+    key paths (within a net) of leaves whose gradient is zero in exact
+    arithmetic, such as the key bias of an attention without RoPE (it
+    adds one constant to all of a query's scores): Adam scales their
+    round-off to steps of up to lr, so they are held to the Adam bound
+    (2 * steps * lr) alone. Returns the port's state after the round."""
+    fns = (None, None) if enc_feats is None else (
+        lambda n: jnp.broadcast_to(jnp.asarray(enc_feats),
+                                   (n,) + enc_feats.shape[1:]),
+        lambda n: torch.tensor(enc_feats).expand(n, -1, -1))
     jspec, tspec = (
-        mod.make_backbone_spec(cfg, seq, remat=remat,
+        mod.make_backbone_spec(cfg, seq, remat=remat, enc_feats_fn=fn,
                                gen_loss_variant="nonsaturating")
-        for mod, cfg in ((jspecs, jcfg), (tspecs, tcfg)))
-    jpcfg, tpcfg = protocol_configs(schedule="parallel", optimizer="adam")
+        for mod, cfg, fn in ((jspecs, jcfg, fns[0]), (tspecs, tcfg, fns[1])))
+    jpcfg, tpcfg = protocol_configs(schedule="parallel", optimizer=optimizer)
     jstate = jprotocol.make_train_state(KEY, lambda k: params, jpcfg, K)
     tstate = interop.to_torch(jax.device_get(jstate), "cpu")
     n_params = tprotocol.count_params(tstate["disc"])
@@ -238,8 +252,22 @@ def round_matches_jax(jcfg, tcfg, params, seq, remat=False):
         np.testing.assert_allclose(float(tm[name]), float(jm[name]), rtol=0,
                                    atol=atol)
     for part, steps in (("disc", tpcfg.n_d), ("gen", tpcfg.n_g)):
-        adam_close(tstate[part], jstate[part], atol=1e-5, lr=1e-3,
-                   steps=steps)
+        for path in zero_grad:
+            got, want = (functools.reduce(dict.get, path[:-1], st[part])
+                         .pop(path[-1]) for st in (tstate, jstate))
+            assert float(np.abs(got.numpy() - np.asarray(want)).max()) <= \
+                2 * steps * tpcfg.lr_d
+        if optimizer == "sgd" and part == "disc":
+            quant_step_close(tstate[part], jstate[part], atol=1e-5)
+        elif optimizer == "sgd":     # the server's generator, not uploaded
+            for g, w in zip(tree_leaves(tstate[part]),
+                            jax.tree_util.tree_leaves(jstate[part])):
+                np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                           atol=1e-5)
+        else:
+            adam_close(tstate[part], jstate[part], atol=1e-5, lr=1e-3,
+                       steps=steps)
+    return tstate
 
 
 def test_gan_round_matches_jax():

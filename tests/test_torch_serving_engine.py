@@ -24,6 +24,7 @@ import torch
 from repro.checkpoint import save_checkpoint as jsave_checkpoint
 from repro.configs import get_arch_config as jget_arch_config
 from repro.launch import serve as jserve
+from repro.models import gan as jgan
 from repro.serving import Request as JRequest
 from repro.serving import ServingEngine as JServingEngine
 from repro.serving import cache as jpaging
@@ -328,15 +329,31 @@ def test_refusals_name_their_roadmap_items(tmp_path):
     # tests/test_torch_serving_tp.py serves on one)
     with pytest.raises(RuntimeError, match="no 'model' process group"):
         ServingEngine(qwen, None, tp=2, device="cpu")
+    # the encoder-decoder and vision families, once refused, need the
+    # frontend's features for their cross caches, as JAX's engine
+    # asserts (tests/test_torch_encdec.py and test_torch_vlm.py serve
+    # them); a family without cross sublayers ignores enc_feats, as in
+    # JAX
     for cfg in (dataclasses.replace(qwen, family="encdec"),
                 dataclasses.replace(qwen, family="vlm")):
-        with pytest.raises(NotImplementedError, match="A13"):
+        with pytest.raises(ValueError, match="enc_feats_fn"):
             ServingEngine(cfg, None, device="cpu")
+    # the serve CLI passes no features, as JAX's passes none
+    for name in ("whisper-base", "llama-3.2-vision-90b"):
+        with pytest.raises(ValueError, match="enc_feats_fn"):
+            serve.main(["--arch", name, "--reduced", "--device", "cpu"])
     _, params = model("qwen3-1.7b")
-    with pytest.raises(NotImplementedError, match="A13"):
-        gan.generator_lm_apply(interop.to_torch(params, "cpu"), qwen,
-                               torch.zeros((1, 2), dtype=torch.int64),
-                               enc_feats=torch.zeros(1, 4, qwen.d_model))
+    toks = np.array([[3, 1, 4]], dtype=np.int32)
+    with torch.no_grad():
+        got = gan.generator_lm_apply(
+            interop.to_torch(params, "cpu"), qwen, torch.tensor(toks).long(),
+            enc_feats=torch.zeros(1, 4, qwen.d_model))["logits"]
+    want = jgan.generator_lm_apply(
+        jax.tree_util.tree_map(jnp.asarray, params),
+        jget_arch_config("qwen3-1.7b").reduced(), jnp.asarray(toks),
+        enc_feats=jnp.zeros((1, 4, qwen.d_model)))["logits"]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-5)
     # the TP feed-forward: the plain logits on a model group of one rank
     tokens = torch.arange(1, 5, dtype=torch.int64)[None]
     with world_of_one(tmp_path) as group, torch.no_grad():
