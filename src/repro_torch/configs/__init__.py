@@ -5,7 +5,7 @@ from __future__ import annotations
 import importlib
 
 from repro_torch.configs.base import (ArchConfig, MoEConfig, ProtocolConfig,
-                                      SSMConfig)
+                                      ShapeConfig, SSMConfig)
 from repro_torch.configs.dcgan import DCGANConfig
 
 # Canonical (dashed) ids of the architectures, mapped to modules: every
@@ -39,4 +39,4 @@ def list_archs():
 
 
 __all__ = ["ArchConfig", "MoEConfig", "SSMConfig", "ProtocolConfig",
-           "DCGANConfig", "get_arch_config", "list_archs"]
+           "ShapeConfig", "DCGANConfig", "get_arch_config", "list_archs"]

@@ -1,7 +1,8 @@
-"""Architecture and protocol configuration: copies of
-`repro.configs.base.MoEConfig`, `SSMConfig`, `ArchConfig` and
-`ProtocolConfig` (fields, properties and `reduced()` unchanged), so a
-config built here equals the JAX package's field for field."""
+"""Architecture, input-shape and protocol configuration: copies of
+`repro.configs.base.MoEConfig`, `SSMConfig`, `ArchConfig`, `ShapeConfig`
+and `ProtocolConfig` (fields, properties and `reduced()` unchanged), so a config built here equals the JAX package's
+field for field. `MeshConfig` belongs to the GSPMD planner, which the
+port does not have."""
 from __future__ import annotations
 
 import dataclasses
@@ -156,6 +157,14 @@ class ArchConfig:
         if self.window is not None:
             changes["window"] = min(self.window, 8)
         return dataclasses.replace(self, **changes)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                    # "train" | "prefill" | "decode"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -50,10 +50,19 @@ def _normalized(weights):
 
 def flatten_stacked(stacked_params):
     """A stacked tree (leading axis K on every leaf) as one contiguous
-    (K, N) float32 payload, leaves in flatten order."""
+    (K, N) float32 payload, leaves in flatten order. Each leaf is copied
+    (and widened) into its columns, so no float32 copy of a narrower
+    leaf is held beside the payload."""
     leaves = tree_leaves(stacked_params)
     k = leaves[0].shape[0]
-    return torch.cat([x.reshape(k, -1).float() for x in leaves], dim=1)
+    sizes = [x[0].numel() for x in leaves]
+    flat = torch.empty((k, sum(sizes)), dtype=torch.float32,
+                       device=leaves[0].device)
+    off = 0
+    for x, size in zip(leaves, sizes):
+        flat[:, off:off + size].copy_(x.reshape(k, -1))
+        off += size
+    return flat
 
 
 def _unflatten(flat, like):

@@ -12,10 +12,13 @@ each round. With `capture=True` (the stacked layout on CUDA):
      `torch.cuda.set_sync_debug_mode("error")`: the warm-up is a real
      round, builds every kernel library on first use (never inside the
      capture), and proves that the body never synchronises with the
-     host;
+     host; its segments are expandable too (a 16-layer granite-3-2b
+     round in bfloat16 left 23 GiB of fixed segments unusable for a
+     4 GiB block);
   2. the body is then captured once with `torch.cuda.graph` on the same
      stream (capturing runs nothing), with the caching allocator's
-     expandable segments on for the capture alone (`_expandable_segments`);
+     expandable segments on for the capture alone (`_expandable_segments`)
+     and the warm-up's cached blocks released first;
   3. every later round replays the graph: no Python between the kernels.
 
 If the capture or a replay fails, the error propagates: there is no
@@ -30,6 +33,7 @@ buffer; a chunk ends with one synchronise and one copy to the host.
 from __future__ import annotations
 
 import contextlib
+import gc
 import os
 from typing import Callable
 
@@ -53,8 +57,8 @@ def _expandable_segments():
     free segment back to the device until the capture ends; with fixed
     segments a round of multi-GiB leaves (granite-3-2b's) fragments that
     pool past the card (55 GiB of segments around 24 GiB of live
-    tensors). Grown in place, the pool stays near the round's live
-    peak. The setting only shapes the segments made inside the block:
+    tensors), and the eager warm-up's side-stream pool alike. Grown in
+    place, the pool stays near the round's live peak. The setting only shapes the segments made inside the block:
     eager rounds and everything else keep fixed segments, unless the
     environment (PYTORCH_CUDA_ALLOC_CONF or PYTORCH_ALLOC_CONF) turns
     expandable segments on for the whole process, which is then left
@@ -177,10 +181,18 @@ class RoundGraph:
         main = torch.cuda.current_stream(device)
         self._stream = torch.cuda.Stream(device)
         self._stream.wait_stream(main)
-        with torch.cuda.stream(self._stream), _sync_debug_error():
+        with _expandable_segments(), torch.cuda.stream(self._stream), \
+                _sync_debug_error():
             row = self._round()
         main.wait_stream(self._stream)
         row.record_stream(main)
+        # the warm-up's cached blocks back to the card (its reference
+        # cycles collected first): the capture's private pool cannot use
+        # them, and a round of multi-GB leaves (granite-3-2b at 16
+        # layers in bfloat16) does not fit twice
+        gc.collect()
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
         graph = torch.cuda.CUDAGraph()
         with _expandable_segments(), torch.cuda.graph(graph,
                                                       stream=self._stream):

@@ -24,8 +24,11 @@ def _quantize_leaf(x, rnd, amax, levels):
     scale = torch.clamp(amax.float(), min=1e-12) / levels
     scaled = x.float() / scale
     low = torch.floor(scaled)
-    q = low + (rnd < scaled - low)
-    return torch.clamp(q, -levels - 1, levels).to(torch.int32), scale
+    # low + (rnd < scaled - low), updated in place: a stacked leaf's
+    # float32 temporaries are multi-GB at granite-3-2b's widths
+    q = low.add_(rnd < scaled.sub_(low))
+    del scaled
+    return q.clamp_(-levels - 1, levels).to(torch.int32), scale
 
 
 def _levels(bits: int) -> int:
@@ -141,7 +144,7 @@ def roundtrip_stacked(uniforms, stacked_tree, bits: int = 16):
         amax = x.reshape(k, -1).abs().amax(dim=1)
         q, scale = _quantize_leaf(
             x, rnd, amax.reshape((k,) + (1,) * (x.ndim - 1)), levels)
-        out.append((q.float() * scale).to(x.dtype))
+        out.append(q.float().mul_(scale).to(x.dtype))
     return tree_unflatten(stacked_tree, out)
 
 

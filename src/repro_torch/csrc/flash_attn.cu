@@ -63,9 +63,10 @@
 //   D 128: 2 warpgroups, 16-key tiles, 205,824 B, 201 / 211: 1 block an SM
 //   D 256: 1 warpgroup,   8-key tiles, 206,848 B, 208 / 208: 1 block an SM
 //
-// A query that sees no key at all (possible only with a window and t <
-// s - window + 1) gets out 0 and lse -inf; the model's calls never ask
-// for one (self-attention sees its own key, cross-attention every key).
+// Every query sees at least one key: the wrapper (`_check` in
+// kernels/flash_attn/ops.py) refuses a window with t + window <= s, the
+// only calls that would leave a query none (self-attention sees its own
+// key, cross-attention every key).
 //
 // Layouts: q (b, s, H, D); k, v (b, t, KV, D); float32 or bfloat16, unit
 // stride in D, 16-byte aligned with strides of whole 16 bytes (the

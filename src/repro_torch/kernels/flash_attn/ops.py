@@ -78,6 +78,13 @@ def _check(q, k, v, window):
         raise ValueError("empty input")
     if window is not None and window < 1:
         raise ValueError(f"window {window} < 1 leaves queries no key")
+    if window is not None and t + window <= s:
+        # query i sees keys (i - window, i] (causal) or (i - window, t)
+        # (not causal), so the last s - t - window + 1 queries see none
+        raise ValueError(
+            f"window {window} over t={t} keys leaves queries "
+            f"{t + window - 1}..{s - 1} of s={s} no key (needs t + window "
+            f"> s)")
     return b, s, t, h, kv, d
 
 
@@ -162,7 +169,12 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None):
     j is seen by query i when j <= i (causal) and j > i - window (window
     set); bidirectional (causal=False, no window) every query sees all t
     keys (the encoder's self-attention, cross-attention). Returns
-    (b, s, H, D) float32."""
+    (b, s, H, D) float32.
+
+    A call in which some query sees no key (a window with t + window <=
+    s, causal or not) raises a ValueError on the CPU and the card alike:
+    the JAX kernel returns the mean of the values there, which depends
+    on the padding, and no model call asks for such a row."""
     if q.device.type == "cpu":
         fwd = _plain_forward
     elif q.device.type == "cuda":

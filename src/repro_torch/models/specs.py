@@ -27,13 +27,16 @@ def make_dcgan_spec(cfg: DCGANConfig, *,
 def make_backbone_spec(cfg: ArchConfig, seq_len: int, *, enc_feats_fn=None,
                        remat: bool = True,
                        gen_loss_variant: str = "minimax",
-                       tp_axis=None) -> GanModelSpec:
+                       dtype=torch.float32, tp_axis=None) -> GanModelSpec:
     """Backbone-GAN over token data.
 
     Real batches are integer token arrays (m, seq_len); they enter the
     discriminator through its embedding table. Fakes are generator
     embedding sequences (m, seq_len, d). `sample_z(generator, n)` draws
-    (n, seq_len, d_z) noise. Conditioned families get their stub
+    (n, seq_len, d_z) noise in `dtype`: bfloat16 noise (the launch step's,
+    `launch/steps.py`) carries every downstream product in bfloat16, as
+    the apply functions follow their input's dtype. Conditioned families
+    get their stub
     frontend features from enc_feats_fn(n) (`make_stub_enc_feats`), in
     both nets.
 
@@ -62,7 +65,7 @@ def make_backbone_spec(cfg: ArchConfig, seq_len: int, *, enc_feats_fn=None,
 
     def sample_z(generator, n):
         return torch.randn((n, seq_len, cfg.d_z), generator=generator,
-                           device=generator.device)
+                           device=generator.device, dtype=dtype)
 
     def gen_apply(gen, z):
         return gan_model.generator_apply(gen, cfg, z,

@@ -20,8 +20,30 @@ class Optimizer(NamedTuple):
     update: Callable
 
 
+def _add_keeping_dtype(p, u):
+    if u.dtype != p.dtype and torch.result_type(p, u) != p.dtype:
+        raise TypeError(
+            f"an update of dtype {u.dtype} would turn a {p.dtype} parameter "
+            f"{tuple(p.shape)} into {torch.result_type(p, u)}; the JAX "
+            f"package's local and server steps are lax.scan loops, which "
+            f"refuse a carry whose dtype changes (Adam's float32 update on a "
+            f"bfloat16 state): use an optimizer that keeps the parameters' "
+            f"dtype (sgd, momentum) or float32 parameters")
+    return torch.add(p, u)
+
+
 def apply_updates(params, updates):
-    return tree_map(torch.add, params, updates)
+    """params + updates, leaf by leaf. Raises TypeError where an update
+    would change a parameter's dtype, as the JAX package's scans over
+    the local and server steps do."""
+    return tree_map(_add_keeping_dtype, params, updates)
+
+
+def _weak(c: float, x: torch.Tensor) -> float:
+    """The Python scalar `c` rounded to x's dtype, as the JAX package's
+    weakly typed scalars take the array's dtype (a bfloat16 gradient is
+    scaled by bfloat16(lr)); the identity in float32."""
+    return float(torch.tensor(c, dtype=x.dtype))
 
 
 def sgd(lr: float) -> Optimizer:
@@ -29,7 +51,7 @@ def sgd(lr: float) -> Optimizer:
         return {}
 
     def update(grads, state):
-        return tree_map(lambda g: -lr * g, grads), state
+        return tree_map(lambda g: _weak(-lr, g) * g, grads), state
 
     return Optimizer(init, update)
 
@@ -39,8 +61,9 @@ def momentum(lr: float, beta: float = 0.9) -> Optimizer:
         return {"mu": tree_map(torch.zeros_like, params)}
 
     def update(grads, state):
-        mu = tree_map(lambda m, g: beta * m + g, state["mu"], grads)
-        return tree_map(lambda m: -lr * m, mu), {"mu": mu}
+        mu = tree_map(lambda m, g: _weak(beta, m) * m + g, state["mu"],
+                      grads)
+        return tree_map(lambda m: _weak(-lr, m) * m, mu), {"mu": mu}
 
     return Optimizer(init, update)
 

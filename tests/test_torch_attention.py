@@ -372,6 +372,50 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         ops._kernel_forward(q, k, v, True, None)
 
 
+# (s, t, window, causal) of calls in which the last queries see no key
+# (t + window <= s), causal and not, and at the equality itself
+NO_KEY_CASES = [(8, 2, 2, True), (8, 2, 2, False), (8, 4, 4, True),
+                (600, 40, 520, True), (600, 40, 560, False)]
+
+
+@pytest.mark.parametrize("s,t,window,causal", NO_KEY_CASES)
+def test_wrapper_refuses_queries_that_see_no_key(s, t, window, causal):
+    """A window with t + window <= s leaves queries t + window - 1 ..
+    s - 1 no key. The JAX kernel gives them the mean of the values
+    (which depends on the padding), so the port refuses the call: the
+    public wrapper on the CPU (the plain version) and the kernel path
+    alike, before anything runs."""
+    q = torch.zeros(1, s, 4, 32)
+    k = v = torch.zeros(1, t, 2, 32)
+    with pytest.raises(ValueError, match="no key"):
+        ops.flash_attention(q, k, v, causal=causal, window=window)
+    with pytest.raises(ValueError, match="no key"):
+        ops._kernel_forward(q, k, v, causal, window)
+
+
+@pytest.mark.parametrize("s,t,window,causal", [
+    (s, t, s + 1 - t, causal) for s, t, _, causal in NO_KEY_CASES])
+def test_window_at_the_boundary_still_runs(s, t, window, causal):
+    """At t + window = s + 1 the last query sees exactly one key: the
+    wrapper takes the call, and its output and lse match the Pallas
+    kernel's oracle (`flash_attention_ref`'s blockwise forward)."""
+    q = normals(1, s, 4, 32, seed=0)
+    k, v = (normals(1, t, 2, 32, seed=i) for i in (1, 2))
+    jout, jlse = jflash_ref._flash_fwd_inner(
+        jnp.asarray(ref.fold_queries(torch.tensor(q), 2).numpy()),
+        *(jnp.asarray(a.transpose(0, 2, 1, 3)) for a in (k, v)),
+        jnp.asarray(np.tile(np.arange(s, dtype=np.int32), 2))[None, None],
+        jnp.asarray(np.arange(t, dtype=np.int32))[None, None], None,
+        32 ** -0.5, causal, window, 512, False)
+    tq, tk, tv = map(torch.tensor, (q, k, v))
+    out = ops.flash_attention(tq, tk, tv, causal=causal, window=window)
+    _, lse = ops._plain_forward(tq, tk, tv, causal, window)
+    np.testing.assert_allclose(ref.fold_queries(out, 2).numpy(),
+                               np.asarray(jout), rtol=0, atol=2e-5)
+    np.testing.assert_allclose(lse.reshape(1, 2, -1).numpy(),
+                               np.asarray(jlse), rtol=0, atol=2e-5)
+
+
 def attention_case(s, qk_norm, seed=0):
     d_model, nh, nkv, hd = 64, 4, 2, 16
     jparams = jattention.attention_init(KEY, d_model, nh, nkv, hd,

@@ -394,3 +394,12 @@ def tp_serve(ckpt_dir, arch, workload, blocks, rank, world_size, device):
                     tuple(eng.params["backbone"]["groups"]["sub0"]["ff"]
                           ["w_out"].shape)))
     return out
+
+
+def launch_cli_runs(argvs, rank, world_size, device):
+    """`repro_torch.launch.train`'s mesh layout on these ranks for each
+    argv in turn (what its `main` spawns for one)."""
+    from repro_torch.launch import train
+    for argv in argvs:
+        args, faults, reducer = train._checked_args(argv)
+        train._train_rank(args, faults, reducer, rank, world_size, device)
