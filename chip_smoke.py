@@ -133,7 +133,8 @@ Phases, in order; any failure exits non-zero:
               2 serial and 2 parallel rounds, round_robin at 0.5), its
               hostile path under the trimmed mean (2 rounds), FedGAN (2
               rounds), the MLP-GAN (K=8, rounds a second over 50 rounds),
-              mamba2-130m at full width (2 rounds),
+              mamba2-130m at full width (2 host-driver rounds only: its
+              fused run was cut for the script's time when 13e came),
               granite-3-2b (4 layers) and minitron-4b (2 layers) (K=4, 2
               rounds each, peak device memory; the DCGAN's, granite's
               and minitron's runs were cut from 3 rounds), under cuDNN's
@@ -320,7 +321,7 @@ Phases, in order; any failure exits non-zero:
   13. launch  the launch layer (`launch/steps.py`, `launch/train.py`) in
               the JAX launch step's all-bfloat16 state, each part with
               the launch counts at 0 (the "launch" path), in the order
-              a, d, b, c; the whole script leaves b to `--launch-only`
+              a, d, e, b, c; the whole script leaves b to `--launch-only`
               for its time, and runs c on the reduced mamba2-130m when
               it reaches c past CLI_FULL_BY_S (a slow host):
               a. granite-3-2b at full width, 4 layers, phase 5d's
@@ -337,6 +338,16 @@ Phases, in order; any failure exits non-zero:
                  and decode steps on a's generator: the prefill's caches
                  the decode step's, a decode at the last position
                  against the prefill's logits
+              e. the dry run (`launch.dryrun`, `launch.hlo_costs`)
+                 against one measured round of a's configuration: the
+                 step once on the meta device on the host, timed, then
+                 its eager round on the card under the same op counter
+                 after reset_peak_memory_stats, timed; FLOPs within 1%,
+                 each kernel's calls equal to the card's launch counts,
+                 the reckoned peak within 15% of max_memory_allocated
+                 (less what earlier phases hold), compute_s at most a's
+                 replay; under `--launch-only` also b's reckoned peak,
+                 printed beside the peak b measures
               b. granite-3-2b at LAUNCH_B's depth with the launch
                  protocol (SGD, n_d=n_g=5, K=4, m=4, M=4, seq_len 1024):
                  the memory reckoning, wavg at its payload, one chunk of
@@ -2509,7 +2520,8 @@ def driver_mismatch(host, fused):
 
 def compare_drivers(torch, label, make_trainer, n_rounds, *, want,
                     peak=False, planted=False, keep=None, keep_gen=False,
-                    kernel_mods=None, after_host=None, profile=True):
+                    kernel_mods=None, after_host=None, profile=True,
+                    fused=True):
     """`n_rounds` rounds of `make_trainer("host")`, then of
     `make_trainer("fused")`, under cuDNN's deterministic algorithms
     (`train_fused`), so that the two drivers run the same kernels on the
@@ -2528,10 +2540,11 @@ def compare_drivers(torch, label, make_trainer, n_rounds, *, want,
     `after_host(trainer)` then runs on the host trainer (a profiled
     round) and its result goes to out["after_host"]. With profile=False
     the replay is not profiled (mamba2-130m's 245,000 kernels a round;
-    cut for the script's time). Returns a summary for the
-    `fused` JSON line."""
+    cut for the script's time); with fused=False only the host driver
+    runs (its records and generator kept as above). Returns a summary
+    for the `fused` JSON line."""
     out, runs = {}, {}
-    for driver in ("host", "fused"):
+    for driver in ("host", "fused") if fused else ("host",):
         gc.collect()     # a former trainer's cycles hold device memory
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -2557,13 +2570,19 @@ def compare_drivers(torch, label, make_trainer, n_rounds, *, want,
                 keep[f"{label} generator"] = tree_map(
                     lambda t: t.detach().cpu(), trainer.state["gen"])
             del trainer
+    if keep is not None:
+        keep[label] = runs["host"][0]
+    if not fused:
+        print(f"{label}: host driver only, s/round "
+              f"{[round(x, 4) for x in out['host_s']]}"
+              + (f"; peak device memory {out['host_peak_gib']:.2f} GiB"
+                 if peak else ""))
+        return out
     graph = trainer._graph
     if not (graph.captured and graph.eager_rounds == 1
             and graph.replays == n_rounds - 1):
         raise AssertionError(f"{label}: eager {graph.eager_rounds}, "
                              f"replays {graph.replays}")
-    if keep is not None:
-        keep[label] = runs["host"][0]
     wrong = driver_mismatch(runs["host"], runs["fused"])
     if wrong:
         raise AssertionError(f"{label}: the fused driver differs from the "
@@ -2755,7 +2774,11 @@ def train_fused(torch, shards, card, tokens):
                       f"{floor:.3e} apart after {n_rounds} rounds")
         results["MLP-GAN rounds/s"] = mlp_rounds_per_s(torch)
         # mamba2-130m's host rounds are host-bound (~10 s each): 2 rounds,
-        # enough for 8d's comparison and a replay
+        # enough for 8d's comparison; its fused run (the first round
+        # eager under sync-debug mode, ~41 s) was cut for the script's
+        # time when phase 13e came: granite and minitron hold the fused
+        # driver to the host driver with flash_attn, phase 11's zamba2
+        # with ssd_scan
         for name, bb, kernels, n_rounds in (
                 ("mamba2", MAMBA, SSD_KERNELS, 2),
                 ("granite", GRANITE, ("flash_attn",), 2),
@@ -2765,7 +2788,7 @@ def train_fused(torch, shards, card, tokens):
                 torch, bb["arch"], functools.partial(backbone_run, bb),
                 n_rounds,
                 peak=True, keep=host_records, keep_gen=name == "mamba2",
-                profile=name != "mamba2",
+                profile=name != "mamba2", fused=name != "mamba2",
                 want={"wavg": 1, **{kernel: bb["per_round"]
                                     for kernel in kernels}})
     finally:
@@ -6020,6 +6043,133 @@ def launch_b(torch, kernel_mods, tokens):
     return out, launches
 
 
+# 13e's checks of the dry run against the card: FLOPs (the same ops,
+# counted the same way on the meta device and on the card) and the
+# reckoned peak memory against max_memory_allocated
+DRY_FLOPS_RTOL, DRY_PEAK_RTOL = 0.01, 0.15
+
+
+def _launch_a_step():
+    """13a's configuration (LAUNCH_A) as a fresh step of
+    `launch.steps.build_train_step`: (config, step, its meta args)."""
+    from repro_torch.configs import ProtocolConfig, ShapeConfig
+    from repro_torch.launch import steps
+    bb = LAUNCH_A
+    cfg = backbone_config(bb)
+    k = bb["k"]
+    pcfg = ProtocolConfig(n_devices=k, n_d=bb["n_d"], n_g=bb["n_g"],
+                          sample_size=bb["m"], server_sample_size=bb["m"],
+                          lr_d=1e-3, lr_g=1e-3)
+    shape = ShapeConfig("launch_a", bb["seq"], k * bb["n_local"], "train")
+    step, args = steps.build_train_step(cfg, shape, k, pcfg=pcfg)
+    return cfg, step, args
+
+
+def launch_dryrun(torch, kernel_mods, tokens, replay_s):
+    """13e: the dry run against one measured round of 13a's
+    configuration: `launch.dryrun.dry_call` on the meta device (on the
+    host, timed), then the same step's eager round on the card under
+    the same counter (`launch.hlo_costs`) from 13a's bfloat16 start
+    state, after reset_peak_memory_stats, timed with a synchronise.
+    Holds FLOPs within DRY_FLOPS_RTOL, each kernel's calls to the card's
+    launch counts, the reckoned peak within DRY_PEAK_RTOL of
+    max_memory_allocated less what earlier phases hold, and compute_s
+    to at most 13a's replay (`replay_s`). Returns (summary, the
+    launches of the card's round)."""
+    import numpy as np
+    from repro_torch.launch import analysis, dryrun, hlo_costs
+    bb = LAUNCH_A
+    t0 = time.perf_counter()
+    cfg, step, args = _launch_a_step()
+    meta = dryrun.dry_call(step, (*args[:3], 0))
+    dry_s = time.perf_counter() - t0
+    costs, mem = meta.totals(), meta.memory()
+    roof = analysis.analyze(costs, mem, 1)["roofline"]
+    del step, args, meta
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()       # what earlier phases keep
+    cfg, step, _ = _launch_a_step()
+    state = _launch_state(torch, cfg, step.pcfg, bb["k"])
+    batch = {"tokens": torch.as_tensor(tokens[:, :bb["n_local"]])}
+    weights = torch.full((bb["k"],), float(bb["m"]), device="cuda")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(kernel_mods)              # the path starts here
+    t0 = time.perf_counter()
+    (_, metrics), card = hlo_costs.count_costs(step, state, batch, weights,
+                                               0)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = kernel_counts(kernel_mods)  # ... and ends here
+    max_alloc = torch.cuda.max_memory_allocated()
+    measured = max_alloc - held
+    got = card.totals()
+    calls = {name: costs["kernels"].get(name, {}).get("calls", 0)
+             for name in launches}
+    gib = lambda n: n / 2**30
+    print(f"13e dry run of 13a's step (granite-3-2b, 4 layers, K=4, m=4, "
+          f"n_d=n_g=2, SGD, seq_len 1024, bfloat16) on the meta device: "
+          f"{dry_s:.2f} s on the host; the same step's eager round on the "
+          f"card under the counter {card_s:.3f} s (13a's replay "
+          f"{replay_s:.4f} s a round)")
+    print(f"13e FLOPs: meta {costs['flops']:.6e}, card {got['flops']:.6e} "
+          f"(rel {abs(costs['flops'] - got['flops']) / got['flops']:.2e}); "
+          f"hbm_bytes meta {costs['hbm_bytes']:.6e}, card "
+          f"{got['hbm_bytes']:.6e}; kernel calls meta {calls}, the card's "
+          f"launch counters {launches}")
+    print(f"13e memory: reckoned peak {gib(mem['peak_bytes']):.3f} GiB "
+          f"(arguments {gib(mem['argument_bytes']):.3f}, temporaries "
+          f"{gib(mem['temp_bytes']):.3f}); measured max_memory_allocated "
+          f"{gib(max_alloc):.3f} GiB, less {gib(held):.3f} GiB held by "
+          f"earlier phases: {gib(measured):.3f} GiB "
+          f"(reckoned / measured {mem['peak_bytes'] / measured:.4f})")
+    print(f"13e roofline (H100 SXM published peaks): compute_s "
+          f"{roof['compute_s']:.4f}, memory_s {roof['memory_s']:.4f}, "
+          f"dominant {roof['dominant']}; the eager round {card_s:.3f} s, "
+          f"13a's replay {replay_s:.4f} s")
+    failed = []
+    if not abs(costs["flops"] - got["flops"]) <= DRY_FLOPS_RTOL * got["flops"]:
+        failed.append("FLOPs")
+    if calls != launches:
+        failed.append("kernel calls")
+    if not abs(mem["peak_bytes"] - measured) <= DRY_PEAK_RTOL * measured:
+        failed.append("peak memory")
+    if not roof["compute_s"] <= replay_s:
+        failed.append("compute_s above the replay")
+    if not all(np.isfinite(float(v)) for v in metrics.values()):
+        failed.append("non-finite objectives")
+    if failed:
+        raise AssertionError(f"13e: the dry run misses the card on "
+                             f"{failed}")
+    out = dict(dry_s=dry_s, card_s=card_s, replay_s=replay_s,
+               flops_meta=costs["flops"], flops_card=got["flops"],
+               hbm_bytes_meta=costs["hbm_bytes"],
+               hbm_bytes_card=got["hbm_bytes"], kernel_calls_meta=calls,
+               launches=launches, reckoned=mem,
+               max_memory_allocated=max_alloc, held=held,
+               measured_peak=measured, roofline=roof)
+    del state, step, card
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def reckon_launch_b():
+    """13b's step (LAUNCH_B, the launch step's own protocol) dry-run on
+    the meta device: (its memory reckoning, the host seconds)."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun, steps
+    bb = LAUNCH_B
+    t0 = time.perf_counter()
+    shape = ShapeConfig("launch_b", bb["seq"], bb["k"] * bb["n_local"],
+                        "train")
+    step, args = steps.build_train_step(backbone_config(bb), shape, bb["k"])
+    mem = dryrun.dry_call(step, (*args[:3], 0)).memory()
+    return mem, time.perf_counter() - t0
+
+
 def _memo_token_dataset(train, cache):
     """Make `train.make_token_dataset` (the CLI's token table, 10 GB of
     transition tables drawn on the host at vocab 50,280) compute each
@@ -6311,9 +6461,19 @@ def launch_phase(torch, card, kernel_mods, granite_tokens, f32_ref, *,
     gc.collect()
     torch.cuda.empty_cache()
     stamp("launch: 13a and 13d")
+    e, launches_e = launch_dryrun(torch, kernel_mods, granite_tokens,
+                                  a["replay_s"])
+    stamp("launch: 13e")
     b, launches_b = None, {}
     if with_b:
         b, launches_b = launch_b(torch, kernel_mods, granite_tokens)
+        b["reckoned"], b["reckon_s"] = reckon_launch_b()
+        print(f"13e/13b: the dry run's reckoned peak for 13b's step (one "
+              f"eager round, {b['layers']} layers, on the meta device, "
+              f"{b['reckon_s']:.1f} s on the host) "
+              f"{b['reckoned']['peak_bytes'] / 2**30:.2f} GiB against "
+              f"13b's measured {b['peak_gib']:.2f} GiB (the fused chunk's "
+              f"max_memory_allocated)")
         stamp("launch: 13b")
     directory = os.path.join(ROOT, "results", "torch", "launch")
     shutil.rmtree(directory, ignore_errors=True)
@@ -6330,11 +6490,12 @@ def launch_phase(torch, card, kernel_mods, granite_tokens, f32_ref, *,
     cli["reduced"] = reduced
     shutil.rmtree(directory, ignore_errors=True)
     stamp("launch: 13c")
-    parts = [launches_a, launches_d, launches_b, launches_c, ranks]
+    parts = [launches_a, launches_d, launches_e, launches_b, launches_c,
+             ranks]
     launches = {name: sum(part.get(name, 0) for part in parts)
                 for name in launches_a}
     print(f"launch phase on {card}: {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"launch": dict(a=a, b=b, c=cli, d=serve,
+    print(json.dumps({"launch": dict(a=a, b=b, c=cli, d=serve, e=e,
                                      launches=launches)}, default=float))
     return launches, None if b is None else b["wavg"]
 

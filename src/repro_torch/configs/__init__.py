@@ -4,8 +4,8 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import (ArchConfig, MoEConfig, ProtocolConfig,
-                                      ShapeConfig, SSMConfig)
+from repro_torch.configs.base import (INPUT_SHAPES, ArchConfig, MoEConfig,
+                                      ProtocolConfig, ShapeConfig, SSMConfig)
 from repro_torch.configs.dcgan import DCGANConfig
 
 # Canonical (dashed) ids of the architectures, mapped to modules: every
@@ -39,4 +39,5 @@ def list_archs():
 
 
 __all__ = ["ArchConfig", "MoEConfig", "SSMConfig", "ProtocolConfig",
-           "ShapeConfig", "DCGANConfig", "get_arch_config", "list_archs"]
+           "ShapeConfig", "INPUT_SHAPES", "DCGANConfig", "get_arch_config",
+           "list_archs"]

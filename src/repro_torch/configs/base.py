@@ -167,6 +167,16 @@ class ShapeConfig:
     kind: str                    # "train" | "prefill" | "decode"
 
 
+# The JAX package's input shapes, which the dry run sizes every
+# architecture at (`launch.dryrun`).
+INPUT_SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
 @dataclasses.dataclass(frozen=True)
 class ProtocolConfig:
     """The paper's training-protocol knobs (Section III, Section IV)."""

@@ -216,4 +216,8 @@ class RoundGraph:
             rows[i].copy_(row)
         if rows is None:
             return None
+        if rows.device.type == "meta":
+            # a dry run's rounds (`launch.dryrun`): no values to copy
+            return tree_map(lambda x: x.new_empty((n_rounds,) + x.shape),
+                            self._like)
         return _unpack(rows.cpu().numpy(), self._like)

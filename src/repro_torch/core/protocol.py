@@ -82,7 +82,9 @@ STREAM_CHANNEL = 3
 class GanModelSpec:
     """Adapter between the protocol and a concrete (G, D) pair.
 
-    sample_z(generator, n)           -> noise batch on generator.device
+    sample_z(generator, n, device=None)
+                                     -> noise batch on `device`, by default
+                                        generator.device
     gen_apply(gen_params, z)         -> fake data batch
     disc_real(disc_params, batch)    -> logits (n,) on real data
     disc_fake(disc_params, fake)     -> logits (n,) on generated data
@@ -129,9 +131,12 @@ class RoundDraws:
 
 def seeded_generator(seed: int, stream: int, index: int,
                      device) -> torch.Generator:
-    """A generator on `device` seeded from (seed, stream, index)."""
+    """A generator on `device` seeded from (seed, stream, index). A draw
+    on the meta device (a dry run's) takes no values from a generator,
+    so a CPU one stands in there."""
     mixed = np.random.SeedSequence([seed, stream, index]).generate_state(1)
-    gen = torch.Generator(device=device)
+    device = torch.device(device)
+    gen = torch.Generator(device="cpu" if device.type == "meta" else device)
     gen.manual_seed(int(mixed[0]))
     return gen
 
@@ -166,7 +171,7 @@ class DrawSampler:
         z_dev, z_srv = (None, None) if out is None else (out.z_dev,
                                                          out.z_srv)
         for j in range(max(pcfg.n_d, pcfg.n_g)):
-            z_j = self.spec.sample_z(gen, max(m, big_m))
+            z_j = self._sample_z(gen, max(m, big_m))
             if z_dev is None:
                 z_dev = z_j.new_empty((pcfg.n_d, m) + z_j.shape[1:])
                 z_srv = z_j.new_empty((pcfg.n_g, big_m) + z_j.shape[1:])
@@ -192,6 +197,13 @@ class DrawSampler:
                               generator=gen, device=self.device,
                               out=slot("byz_normals"))
         return RoundDraws(z_dev, z_srv, idx, quant_u, drop_u, byz)
+
+    def _sample_z(self, gen, n):
+        """The spec's noise draw; on the meta device from the CPU
+        generator that stands in there (`seeded_generator`)."""
+        if torch.device(self.device).type != "meta":
+            return self.spec.sample_z(gen, n)
+        return self.spec.sample_z(gen, n, device="meta")
 
 
 def make_train_state(init_fn: Callable, pcfg: ProtocolConfig,
@@ -525,7 +537,9 @@ def fill_slots(slots: RoundSlots, sampler: Callable, t: int, *, seed: int,
     if slots.fading is not None or slots.perm is not None:
         device = (slots.fading if slots.fading is not None
                   else slots.perm).device
-        gen = seeded_generator(seed, STREAM_CHANNEL, t, device)
+        # (a meta draw, a dry run's, takes no generator)
+        gen = (None if device.type == "meta"
+               else seeded_generator(seed, STREAM_CHANNEL, t, device))
         if slots.fading is not None:
             slots.fading.exponential_(generator=gen)
         if slots.perm is not None:

@@ -7,9 +7,11 @@ self-attention and cross-attention).
 
 A CUDA tensor launches the kernel in `repro_torch/csrc/flash_attn.cu` or
 raises; a CPU tensor takes the plain version (`ref.
-flash_attention_plain`), and only because it lies on the CPU.
-`launches` counts kernel launches, so a run can show that its attention
-went through the kernel.
+flash_attention_plain`), and only because it lies on the CPU; a meta
+tensor (a dry run) takes the kernel's path up to the launch, and gets
+its outputs, empty. `launches` counts kernel launches, so a run can show
+that its attention went through the kernel. A launch and a meta call
+report the kernel's work (`cost`) to an open `launch.hlo_costs` counter.
 
 The gradient: the JAX package has no backward kernel (its `custom_vjp`
 runs the blockwise FlashAttention-2 backward of `repro.nn.flash_ref` on
@@ -31,6 +33,7 @@ from repro_torch.kernels.flash_attn.ref import (flash_attention_plain,
                                                 fold_queries,
                                                 folded_positions,
                                                 unfold_queries)
+from repro_torch.launch import hlo_costs
 from repro_torch.nn.flash_ref import flash_backward
 
 # Kernel launches since import (or since a caller reset it to 0).
@@ -88,6 +91,38 @@ def _check(q, k, v, window):
     return b, s, t, h, kv, d
 
 
+def key_pairs(s: int, t: int, causal: bool = True, window=None) -> int:
+    """The (query, key) pairs a call computes: query i sees the keys j
+    with lo_i <= j <= hi_i, hi_i = min(i, t - 1) (causal) or t - 1, lo_i
+    = max(i - window + 1, 0) (window set) or 0; a call that `_check`
+    takes leaves no query without a key, so the pairs are the sums
+    of hi_i - lo_i + 1 over the s queries. A causal call over s = t
+    positions has s (s + 1) / 2, or w (w + 1) / 2 + (s - w) w with a
+    window w; a bidirectional one s t."""
+    last = t - 1
+    if causal:
+        n = min(s, t)                     # the queries with hi_i = i
+        hi = n * (n - 1) // 2 + (s - n) * last
+    else:
+        hi = s * last
+    lo = 0
+    if window is not None and s > window:
+        lo = (s - window) * (s - window + 1) // 2
+    return hi - lo + s
+
+
+def cost(b: int, s: int, t: int, h: int, kv: int, d: int, *,
+         causal: bool = True, window=None, itemsize: int = 4):
+    """(flops, bytes) of one launch, PERF.md section 6's formulas (row
+    4): 2 D flops each of q.k and of p.v for every pair it computes,
+    4 b H D pairs; q, k and v read once (`itemsize` bytes an element),
+    the float32 out and lse written once."""
+    pairs = key_pairs(s, t, causal, window)
+    n_bytes = (itemsize * (b * s * h * d + 2 * b * t * kv * d)
+               + 4 * (b * s * h * d + b * h * s))
+    return 4 * b * h * d * pairs, n_bytes
+
+
 def _readable(t):
     """t itself where the kernel can read it through its strides (unit
     stride in D, a 16-byte aligned start, strides of whole 16 bytes),
@@ -101,10 +136,11 @@ def _readable(t):
 
 def _kernel_forward(q, k, v, causal, window):
     """Launch the kernel: out (b, s, H, D) float32, contiguous, and lse
-    (b, H, s) float32."""
+    (b, H, s) float32. On meta tensors the same outputs, empty, and no
+    launch."""
     global launches
     b, s, t, h, kv, d = _check(q, k, v, window)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"the flash_attn kernel runs on CUDA tensors, not "
                          f"{q.device}")
     if d not in HEAD_DIMS:
@@ -113,6 +149,11 @@ def _kernel_forward(q, k, v, causal, window):
     q, k, v = (_readable(t) for t in (q, k, v))
     out = torch.empty((b, s, h, d), dtype=torch.float32, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    work = cost(b, s, t, h, kv, d, causal=causal, window=window,
+                itemsize=q.element_size())
+    if q.device.type == "meta":
+        hlo_costs.record_kernel("flash_attn", *work)
+        return out, lse
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernel()(
@@ -124,12 +165,14 @@ def _kernel_forward(q, k, v, causal, window):
         raise RuntimeError(f"flash_attn kernel launch failed with CUDA "
                            f"error {err}")
     launches += 1
+    hlo_costs.record_kernel("flash_attn", *work)
     return out, lse
 
 
 def _plain_forward(q, k, v, causal, window):
     _check(q, k, v, window)
-    return flash_attention_plain(q, k, v, causal=causal, window=window)
+    with hlo_costs.plain_call("flash_attn"):
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -177,13 +220,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None):
     on the padding, and no model call asks for such a row."""
     if q.device.type == "cpu":
         fwd = _plain_forward
-    elif q.device.type == "cuda":
+    elif q.device.type in ("cuda", "meta"):
         fwd = _kernel_forward
     else:
-        raise ValueError(f"flash_attention runs on CUDA or CPU tensors, not "
-                         f"{q.device}")
+        raise ValueError(f"flash_attention runs on CUDA, CPU or meta "
+                         f"tensors, not {q.device}")
     return FlashAttention.apply(fwd, q, k, v, causal, window)
 
 
 __all__ = ["flash_attention", "FlashAttention", "flash_attention_plain",
-           "build"]
+           "build", "cost", "key_pairs"]

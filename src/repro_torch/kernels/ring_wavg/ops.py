@@ -39,10 +39,18 @@ global) is returned, by a `torch.where` on the device with no host sync.
 
 `ring_accum_` launches the kernel in `repro_torch/csrc/ring_accum.cu` on a
 CUDA tensor or raises; on a CPU tensor it takes the plain version
-(`ref.ring_accum_ref`), and only because the tensor lies on the CPU. The
-ring itself launches through a `RowAccumulator`, which checks its
-tensors once a ring call and then costs a launch only a bound check and
-one ctypes call (37 launches a rank a ring round at K=10).
+(`ref.ring_accum_ref`), and only because the tensor lies on the CPU; on a
+meta tensor (a dry run) it launches nothing. The ring itself launches
+through a `RowAccumulator`, which checks its tensors once a ring call and
+then costs a launch only a bound check and one ctypes call (37 launches a
+rank a ring round at K=10). A launch and a meta call report the kernel's
+work (`cost`) to an open `launch.hlo_costs` counter, and every hop its
+wire bytes, as `collective-permute`.
+
+A DRY RUN (meta tensors, `launch.dryrun`) posts no transfer: its hops
+count their wire bytes, the same as `wire_bytes_sent` counts on a real
+ring, and receive buffers of the right shapes, so the ring's costs and
+memory are reckoned without a peer.
 """
 from __future__ import annotations
 
@@ -57,7 +65,7 @@ import torch.distributed as dist
 from repro_torch.core import quantize
 from repro_torch.kernels._build import load_library
 from repro_torch.kernels.ring_wavg.ref import ring_accum_ref
-from repro_torch.launch import mesh
+from repro_torch.launch import hlo_costs, mesh
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 # Wire block: shared with the TPU wavg kernel's tiling in the JAX package.
@@ -119,6 +127,14 @@ def ring_wire_bytes_per_rank(tree, bits: int, k: int) -> int:
     padded wire payload and the block-scale vector."""
     itemsize = torch.empty((), dtype=wire_dtype(bits)).element_size()
     return (k - 1) * _n_blocks(tree) * (BLOCK_N * itemsize + 4)
+
+
+def cost(rows: int, itemsize: int):
+    """(flops, bytes) of one launch over `rows` wire blocks of
+    `itemsize`-byte elements: a multiply-add an element; acc read and
+    written, q read once, and a coefficient a row (PERF.md section 6,
+    row 2: rows * 2048 * 10 + rows * 4 bytes at int16)."""
+    return 2 * rows * BLOCK_N, rows * BLOCK_N * (8 + itemsize) + rows * 4
 
 
 def _chunk_bounds(n_blocks: int, n_chunks: int):
@@ -217,12 +233,14 @@ class RowAccumulator:
     takes the plain version on the slices."""
 
     def __init__(self, acc, q, coef):
+        if acc.device.type not in ("cuda", "cpu", "meta"):
+            raise ValueError(f"ring_accum runs on CUDA, CPU or meta tensors, "
+                             f"not {acc.device}")
         _check(acc, q, coef)
-        if acc.device.type not in ("cuda", "cpu"):
-            raise ValueError(f"ring_accum runs on CUDA or CPU tensors, not "
-                             f"{acc.device}")
         self.rows = acc.shape[0]
         self.tensors = acc, q, coef
+        self.device_type = acc.device.type
+        self._itemsize = q.element_size()
         self._launch = None
         if acc.device.type == "cuda":
             self._launch = _kernel(q.dtype)
@@ -239,9 +257,14 @@ class RowAccumulator:
         if not 0 <= r0 < r1 <= self.rows:
             raise ValueError(f"ring_accum rows [{r0}, {r1}) outside the "
                              f"{self.rows} rows checked")
+        if self.device_type == "meta":
+            hlo_costs.record_kernel("ring_accum",
+                                    *cost(r1 - r0, self._itemsize))
+            return
         if self._launch is None:
             acc, q, coef = self.tensors
-            ring_accum_ref(acc[r0:r1], q[r0:r1], coef[r0:r1])
+            with hlo_costs.plain_call("ring_accum"):
+                ring_accum_ref(acc[r0:r1], q[r0:r1], coef[r0:r1])
             return
         (a, ra), (q, rq), (c, rc) = self._base
         err = self._launch(a + r0 * ra, q + r0 * rq, c + r0 * rc, r1 - r0,
@@ -250,6 +273,7 @@ class RowAccumulator:
             raise RuntimeError(f"ring_accum kernel launch failed with CUDA "
                                f"error {err}")
         launches += 1
+        hlo_costs.record_kernel("ring_accum", *cost(r1 - r0, self._itemsize))
 
 
 def _host_copy(t):
@@ -272,12 +296,17 @@ def _ring_hops(acc, payload, scales, coef, w_norm, bounds, k, my, group):
     nxt = mesh.global_rank(group, (my + 1) % k)
     prv = mesh.global_rank(group, (my - 1) % k)
 
+    dry = acc.device.type == "meta"
+
     def post(send, recv, tag):
+        hlo_costs.record_collective("collective-permute", send.nbytes)
+        if dry:
+            return []            # a dry run: the bytes, no transfer
         return dist.batch_isend_irecv([
             dist.P2POp(dist.isend, send, nxt, group, tag),
             dist.P2POp(dist.irecv, recv, prv, group, tag)])
 
-    on_host = mesh.wire_on_host(group)
+    on_host = not dry and mesh.wire_on_host(group)
     buf, sbuf = ((_host_copy(payload), _host_copy(scales)) if on_host
                  else (payload, scales))
     if on_host:
@@ -295,7 +324,7 @@ def _ring_hops(acc, payload, scales, coef, w_norm, bounds, k, my, group):
         rscales = _empty_like_wire(sbuf)
         for req in post(sbuf, rscales, len(bounds)):
             req.wait()
-        wire_bytes_sent += sbuf.nbytes
+        wire_bytes_sent += 0 if dry else sbuf.nbytes
         sbuf = rscales
         torch.mul(sbuf.to(coef.device), w_norm[(my - h) % k], out=coef)
 
@@ -310,7 +339,7 @@ def _ring_hops(acc, payload, scales, coef, w_norm, bounds, k, my, group):
                 reqs.append(post(buf[n0:n1], rbuf[n0:n1], c + 1))
             for req in reqs[c]:
                 req.wait()
-            wire_bytes_sent += buf[r0:r1].nbytes
+            wire_bytes_sent += 0 if dry else buf[r0:r1].nbytes
             if on_host:
                 dev_q[r0:r1].copy_(rbuf[r0:r1], non_blocking=True)
             accumulate[h % 2](r0, r1)
@@ -367,5 +396,5 @@ def ring_average_psum(local_params, local_weight, *, group=None,
 
 
 __all__ = ["ring_average_psum", "ring_wire_bytes_per_rank", "wire_dtype",
-           "ring_accum_", "ring_accum_ref", "RowAccumulator", "build",
+           "ring_accum_", "ring_accum_ref", "RowAccumulator", "build", "cost",
            "BLOCK_N", "DEFAULT_CHUNKS"]

@@ -17,7 +17,10 @@ identity regimes (trim=0, a clip_factor no row reaches, krum_f=0) the
 result is the plain weighted average. On a CPU tensor `trimmed_average`
 takes its plain version (`ref.trimmed_mean_ref`), and only because the
 tensor lies on the CPU; on a CUDA tensor it launches the kernel or
-raises. `launches` counts its kernel launches.
+raises; on a meta tensor (a dry run) it returns the kernel's output,
+empty, and launches nothing. `launches` counts its kernel launches; a
+launch and a meta call report the kernel's work (`cost`) to an open
+`launch.hlo_costs` counter.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ import torch
 from repro_torch.kernels._build import load_library
 from repro_torch.kernels.robust_avg.ref import trimmed_mean_ref
 from repro_torch.kernels.wavg import ops as wavg_ops
+from repro_torch.launch import hlo_costs
 
 ROBUST_METHODS = ("trimmed_mean", "norm_clip", "krum")
 
@@ -97,6 +101,15 @@ def _check(x, w, trim):
         raise ValueError(f"trim must be a non-negative int32 (got {trim})")
 
 
+def cost(k: int, n: int):
+    """(flops, bytes) of one launch on a (K, N) payload: the bytes of
+    PERF.md section 6's bound (row 3; x and w read once, the mean
+    written once) and a multiply-add an element for the weighted sum
+    (the selection's comparisons are not products, which is all the
+    counter counts as flops)."""
+    return 2 * k * n, (k * n + k + n) * 4
+
+
 def trimmed_average(x, w, *, trim: int):
     """Coordinate trimmed mean of x (K, N) float32 with RAW float32
     weights w (K,) -> (N,) float32."""
@@ -104,12 +117,16 @@ def trimmed_average(x, w, *, trim: int):
     trim = int(trim)
     _check(x, w, trim)
     if x.device.type == "cpu":
-        return trimmed_mean_ref(x, w, trim)
-    if x.device.type != "cuda":
-        raise ValueError(f"trimmed_wavg runs on CUDA or CPU tensors, not "
-                         f"{x.device}")
+        with hlo_costs.plain_call("trimmed_wavg"):
+            return trimmed_mean_ref(x, w, trim)
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"trimmed_wavg runs on CUDA, CPU or meta tensors, "
+                         f"not {x.device}")
     k, n = x.shape
     out = torch.empty(n, dtype=torch.float32, device=x.device)
+    if x.device.type == "meta":
+        hlo_costs.record_kernel("trimmed_wavg", *cost(k, n))
+        return out
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernel()(x.data_ptr(), w.data_ptr(), out.data_ptr(), k, n,
@@ -118,6 +135,7 @@ def trimmed_average(x, w, *, trim: int):
         raise RuntimeError(f"trimmed_wavg kernel launch failed with CUDA "
                            f"error {err}")
     launches += 1
+    hlo_costs.record_kernel("trimmed_wavg", *cost(k, n))
     return out
 
 
@@ -195,4 +213,4 @@ def robust_average(x, w, cfg: RobustConfig):
 
 __all__ = ["ROBUST_METHODS", "RobustConfig", "trimmed_average",
            "trimmed_mean_ref", "clip_weights", "krum_weights",
-           "robust_average", "build", "MAX_K"]
+           "robust_average", "build", "cost", "MAX_K"]

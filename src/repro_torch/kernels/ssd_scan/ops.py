@@ -5,10 +5,12 @@ is for the JAX package.
 
 A CUDA tensor launches the kernel in `repro_torch/csrc/ssd_scan.cu` or
 raises; a CPU tensor takes the plain version (`ref.ssd_scan_plain`), and
-only because it lies on the CPU. `launches` counts scans launched (each
-is four CUDA kernels: C.B^T per group, the chunk states, the pass across
-chunks and the outputs), so a run can show that its mixers went through
-the kernel.
+only because it lies on the CPU; a meta tensor (a dry run) takes the
+kernel's path up to the launch, and gets its outputs, empty. `launches`
+counts scans launched (each is four CUDA kernels: C.B^T per group, the
+chunk states, the pass across chunks and the outputs), so a run can show
+that its mixers went through the kernel. A launch and a meta call report
+the scan's work (`cost`) to an open `launch.hlo_costs` counter.
 
 The gradient: the JAX package has no backward kernel for the scan (its
 training gradient is autodiff of `repro.nn.ssm.ssd_scan_ref`). Here
@@ -26,6 +28,7 @@ import torch
 
 from repro_torch.kernels._build import load_library
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_plain
+from repro_torch.launch import hlo_costs
 
 # Scans launched since import (or since a caller reset it to 0).
 launches = 0
@@ -82,6 +85,29 @@ def _check(x, dt, A, B, C, chunk):
     return b, s, h, p, g, n
 
 
+def cost(b: int, s: int, h: int, p: int, g: int, n: int, chunk: int, *,
+         x_itemsize: int = 4, bc_itemsize: int = 4,
+         final_state: bool = False):
+    """(flops, bytes) of one scan, PERF.md section 6's formulas (row 5)
+    in general form, at the kernel's chunk (`chunk` after the wrapper's
+    rounding). Flops: the least the call needs: for every chunk the
+    causal triangle of C.B^T once a group and of the score-times-x
+    product a head; a head's C.state for every chunk but the first (its
+    state is zero) and its state update for every chunk but the last,
+    whose state only the final state reads. Bytes: x and y (x's dtype),
+    dt and A (float32), B and C (`bc_itemsize`) once each, and the final
+    state (float32) when asked."""
+    n_chunks = -(-s // chunk)
+    tri = chunk * (chunk + 1) // 2
+    updates = n_chunks if final_state else n_chunks - 1
+    flops = b * (n_chunks * (2 * tri * n * g + h * 2 * tri * p)
+                 + h * 2 * chunk * n * p * ((n_chunks - 1) + updates))
+    n_bytes = (2 * x_itemsize * b * s * h * p + 4 * (b * s * h + h)
+               + 2 * bc_itemsize * b * s * g * n
+               + (4 * b * h * n * p if final_state else 0))
+    return flops, n_bytes
+
+
 def _aligned(t):
     """`t` when the kernel can copy its rows in 16-byte pieces (unit
     stride in the last dimension, a 16-byte aligned start and strides of
@@ -95,10 +121,11 @@ def _aligned(t):
 
 def _kernel_forward(x, dt, A, B, C, chunk, return_final_state):
     """Launch the kernel: y (b, s, h, p) in x's dtype and, when asked,
-    the final state (b, h, n, p) float32."""
+    the final state (b, h, n, p) float32. On meta tensors the same
+    outputs (and scratch), empty, and no launch."""
     global launches
     b, s, h, p, g, n = _check(x, dt, A, B, C, chunk)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"the ssd_scan kernel runs on CUDA tensors, not "
                          f"{x.device}")
     # no longer than the padded sequence, a whole number of mma rows
@@ -125,6 +152,12 @@ def _kernel_forward(x, dt, A, B, C, chunk, return_final_state):
     cb = torch.empty((b, n_chunks, g, chunk, chunk), **f32)
     states = torch.empty((b, h, n_states, n, p), **f32)
     tot = torch.empty((b, h, n_states), **f32)
+    work = cost(b, s, h, p, g, n, chunk, x_itemsize=x.element_size(),
+                bc_itemsize=B.element_size(),
+                final_state=return_final_state)
+    if x.device.type == "meta":
+        hlo_costs.record_kernel("ssd_scan", *work)
+        return y, state
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernel()(
@@ -138,13 +171,15 @@ def _kernel_forward(x, dt, A, B, C, chunk, return_final_state):
         raise RuntimeError(f"ssd_scan kernel launch failed with CUDA error "
                            f"{err}")
     launches += 1
+    hlo_costs.record_kernel("ssd_scan", *work)
     return y, state
 
 
 def _plain_forward(x, dt, A, B, C, chunk, return_final_state):
     _check(x, dt, A, B, C, chunk)
-    y, state = ssd_scan_plain(x, dt, A, B, C, chunk=chunk,
-                              return_final_state=True)
+    with hlo_costs.plain_call("ssd_scan"):
+        y, state = ssd_scan_plain(x, dt, A, B, C, chunk=chunk,
+                                  return_final_state=True)
     return y, (state if return_final_state else None)
 
 
@@ -191,12 +226,12 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 128, initial_state=None,
         raise ValueError("the ssd_scan kernel starts from a zero state")
     if x.device.type == "cpu":
         fwd = _plain_forward
-    elif x.device.type == "cuda":
+    elif x.device.type in ("cuda", "meta"):
         fwd = _kernel_forward
     else:
-        raise ValueError(f"ssd_scan runs on CUDA or CPU tensors, not "
+        raise ValueError(f"ssd_scan runs on CUDA, CPU or meta tensors, not "
                          f"{x.device}")
     return SSDScan.apply(fwd, x, dt, A, B, C, chunk, return_final_state)
 
 
-__all__ = ["ssd_scan", "SSDScan", "ssd_scan_plain", "build"]
+__all__ = ["ssd_scan", "SSDScan", "ssd_scan_plain", "build", "cost"]

@@ -7,7 +7,12 @@ holds the workers, here a process group does).
 helpers below run an all-gather or an all-reduce on any group. On a gloo
 group (ranks that share a card, or the CPU) the wire is host memory, so
 the helpers stage device tensors through the host; on an NCCL group the
-tensors stay on their cards.
+tensors stay on their cards. Each helper reports its bytes to an open
+`launch.hlo_costs` counter, as the JAX package counts them: an
+all-gather its gathered result, an all-reduce its operand twice. On meta
+tensors (a dry run, `launch.dryrun`) a helper transfers nothing and
+returns an empty result of the right shape: the group need only know
+its size and this rank (a fake process group does).
 
 THE 2-D LAYOUT (`spawn(..., tp=t)`): the world is K x t ranks, global
 rank k * t + r being worker k's model rank r, as a JAX (data, model)
@@ -30,6 +35,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from repro_torch.device import resolve_device
+from repro_torch.launch import hlo_costs
 
 
 def wire_on_host(group=None) -> bool:
@@ -45,16 +51,23 @@ def global_rank(group, rank: int) -> int:
 def all_gather(t, group=None):
     """Every rank's `t`, stacked on a new leading axis in rank order, on
     `t`'s device."""
+    k = dist.get_world_size(group)
+    hlo_costs.record_collective("all-gather", k * t.nbytes)
+    if t.device.type == "meta":
+        return t.new_empty((k,) + tuple(t.shape))
     src = t.detach().contiguous()
     if wire_on_host(group):
         src = src.cpu()
-    out = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
+    out = [torch.empty_like(src) for _ in range(k)]
     dist.all_gather(out, src, group=group)
     return torch.stack(out).to(t.device)
 
 
 def all_reduce_sum(t, group=None):
     """The sum of every rank's `t`, on `t`'s device."""
+    hlo_costs.record_collective("all-reduce", 2 * t.nbytes)
+    if t.device.type == "meta":
+        return torch.empty_like(t)
     buf = t.detach().to("cpu" if wire_on_host(group) else t.device,
                         copy=True)
     dist.all_reduce(buf, group=group)
@@ -63,6 +76,9 @@ def all_reduce_sum(t, group=None):
 
 def all_reduce_max(t, group=None):
     """The elementwise max of every rank's `t`, on `t`'s device."""
+    hlo_costs.record_collective("all-reduce", 2 * t.nbytes)
+    if t.device.type == "meta":
+        return torch.empty_like(t)
     buf = t.detach().to("cpu" if wire_on_host(group) else t.device,
                         copy=True)
     dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=group)

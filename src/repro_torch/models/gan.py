@@ -205,7 +205,7 @@ def mlp_gan_spec(*, d_z: int = 8, tp_axis=None):
                             tp_mode="row")[:, 0]
 
     return GanModelSpec(
-        sample_z=lambda generator, n: torch.randn(
-            (n, d_z), generator=generator, device=generator.device),
+        sample_z=lambda generator, n, device=None: torch.randn(
+            (n, d_z), generator=generator, device=device or generator.device),
         gen_apply=gen_apply, disc_real=disc_logits, disc_fake=disc_logits,
         tp_axis=tp_axis)

@@ -15,8 +15,9 @@ def make_dcgan_spec(cfg: DCGANConfig, *,
                     gen_loss_variant: str = "minimax") -> GanModelSpec:
     """The paper's experimental model: image GAN over (b, H, W, C)."""
     return GanModelSpec(
-        sample_z=lambda generator, n: torch.randn(
-            (n, cfg.nz), generator=generator, device=generator.device),
+        sample_z=lambda generator, n, device=None: torch.randn(
+            (n, cfg.nz), generator=generator,
+            device=device or generator.device),
         gen_apply=lambda gen, z: dcgan_model.generator_apply(gen, cfg, z),
         disc_real=lambda disc, x: dcgan_model.discriminator_apply(disc, cfg, x),
         disc_fake=lambda disc, f: dcgan_model.discriminator_apply(disc, cfg, f),
@@ -63,9 +64,9 @@ def make_backbone_spec(cfg: ArchConfig, seq_len: int, *, enc_feats_fn=None,
     def enc(n):
         return enc_feats_fn(n) if enc_feats_fn is not None else None
 
-    def sample_z(generator, n):
+    def sample_z(generator, n, device=None):
         return torch.randn((n, seq_len, cfg.d_z), generator=generator,
-                           device=generator.device, dtype=dtype)
+                           device=device or generator.device, dtype=dtype)
 
     def gen_apply(gen, z):
         return gan_model.generator_apply(gen, cfg, z,

@@ -120,14 +120,15 @@ def ssd_decode_step(state, x, dt, A, B, C):
 
 
 def default_scan(device: torch.device):
-    """The mixer's scan on `device`: the ssd_scan kernel on CUDA, the
-    plain chunked scan on the CPU."""
-    if device.type == "cuda":
+    """The mixer's scan on `device`: the ssd_scan kernel on CUDA (and on
+    the meta device, where a dry run stands in for the card), the plain
+    chunked scan on the CPU."""
+    if device.type in ("cuda", "meta"):
         from repro_torch.kernels.ssd_scan import ops
         return ops.ssd_scan
     if device.type == "cpu":
         return ssd_scan_ref
-    raise ValueError(f"the SSD scan runs on CUDA or CPU tensors, not "
+    raise ValueError(f"the SSD scan runs on CUDA, CPU or meta tensors, not "
                      f"{device}")
 
 

@@ -16,9 +16,19 @@ Where the JAX package hands shard_map per-leaf PartitionSpecs
 (`tp_param_specs`, `shard_round_state_specs`), the port cuts a global
 tree into rank r's shards (`shard_tree`) and puts shards back into the
 global tree (`unshard_tree` from every rank's shards, `gather_tree`
-with the model group's all-gather). The GSPMD half of the JAX module
-(plans, FSDP, cache specs) has no counterpart on the port's process
-groups.
+with the model group's all-gather).
+
+The GSPMD half of the JAX module is not ported, by design: `plan_for`,
+`param_specs`, `state_specs`, the FSDP rules and `cache_specs` place one
+global program's arrays on a device mesh, and the port runs no global
+program. Its processes each hold their own tensors (a rank's worker, or
+its shard of one), and one card has no device mesh, so there is nothing
+for a placement to place. What the JAX module's shard_map specs serve,
+the port covers here: `shard_round_state_specs` by `shard_tree` /
+`gather_tree`, the TP specs by `tp_leaf_dim` / `tp_tree_dims`. (ROADMAP
+item 10c, closed in writing; the launch step's `act_disc_spec` and
+`MeshConfig` and the GSPMD variants `discrep`, `moepin` and `headpin`
+go with it, `launch/steps.py`, `launch/variants.py`.)
 """
 from __future__ import annotations
 
